@@ -1,0 +1,112 @@
+"""Carry DiT weights into the port (counterpart of
+`fast_dit_tpu/ckpt/torch_import.py`).
+
+- `flax_params_to_state_dict` turns a JAX DiT param tree (numpy arrays, as
+  `fast_dit_tpu` stores it: stacked (depth, ...) block params, (in, out)
+  Dense kernels, (D, 3, H, hd) qkv kernel) into the port's state dict, with
+  the reference torch names. The maps are the port's own copy of the
+  inverse maps at `torch_import.py:54-121` and `:166-210`.
+- `load_torch_checkpoint` reads a local reference `.pt` file: a flat state
+  dict, or a trainer checkpoint {"model", "ema", ...} resolved to "ema" when
+  present. It never downloads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..models.pos_embed import get_2d_sincos_pos_embed
+
+__all__ = ["flax_params_to_state_dict", "load_torch_checkpoint"]
+
+
+def _t(arr):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
+    return arr.T
+
+
+def _id(arr):
+    return arr
+
+
+def _qkv_w(arr):  # (D, 3, H, hd) -> (3D, D)
+    return arr.reshape(arr.shape[0], -1).T
+
+
+def _qkv_b(arr):  # (3, H, hd) -> (3D,)
+    return arr.reshape(-1)
+
+
+def _proj_w(arr):  # (H, hd, D_out) -> (D_out, H*hd)
+    h, hd, d_out = arr.shape
+    return arr.reshape(h * hd, d_out).T
+
+
+# torch name suffix inside a block -> (flax path inside the block, export)
+_BLOCK_MAP = {
+    "adaLN_modulation.1.weight": ("adaLN_modulation/kernel", _t),
+    "adaLN_modulation.1.bias": ("adaLN_modulation/bias", _id),
+    "attn.qkv.weight": ("attn/qkv/kernel", _qkv_w),
+    "attn.qkv.bias": ("attn/qkv/bias", _qkv_b),
+    "attn.proj.weight": ("attn/proj/kernel", _proj_w),
+    "attn.proj.bias": ("attn/proj/bias", _id),
+    "mlp.fc1.weight": ("mlp/fc1/kernel", _t),
+    "mlp.fc1.bias": ("mlp/fc1/bias", _id),
+    "mlp.fc2.weight": ("mlp/fc2/kernel", _t),
+    "mlp.fc2.bias": ("mlp/fc2/bias", _id),
+}
+
+# top-level torch name -> (flax path, export)
+_TOP_MAP = {
+    "x_embedder.proj.bias": ("x_embedder/proj/bias", _id),
+    "t_embedder.mlp.0.weight": ("t_embedder/fc1/kernel", _t),
+    "t_embedder.mlp.0.bias": ("t_embedder/fc1/bias", _id),
+    "t_embedder.mlp.2.weight": ("t_embedder/fc2/kernel", _t),
+    "t_embedder.mlp.2.bias": ("t_embedder/fc2/bias", _id),
+    "y_embedder.embedding_table.weight": ("y_embedder/embedding_table/embedding", _id),
+    "final_layer.adaLN_modulation.1.weight": ("final_layer/adaLN_modulation/kernel", _t),
+    "final_layer.adaLN_modulation.1.bias": ("final_layer/adaLN_modulation/bias", _id),
+    "final_layer.linear.weight": ("final_layer/linear/kernel", _t),
+    "final_layer.linear.bias": ("final_layer/linear/bias", _id),
+}
+
+
+def _get(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def flax_params_to_state_dict(params: dict, patch_size: int, in_channels: int = 4,
+                              input_size: int = 32) -> Dict[str, torch.Tensor]:
+    """JAX DiT param tree (numpy leaves, with or without the "params" level)
+    -> the port's fp32 state dict, `pos_embed` included."""
+    p = params["params"] if "params" in params else params
+    arrays: Dict[str, np.ndarray] = {}
+    kern = _get(p, "x_embedder/proj/kernel")  # (C*p*p, D)
+    d = kern.shape[1]
+    arrays["x_embedder.proj.weight"] = kern.T.reshape(d, in_channels, patch_size, patch_size)
+    for name, (path, export) in _TOP_MAP.items():
+        arrays[name] = export(_get(p, path))
+    block = p["blocks"]["block"]
+    depth = _get(block, "attn/qkv/kernel").shape[0]
+    for suffix, (path, export) in _BLOCK_MAP.items():
+        stacked = _get(block, path)
+        for i in range(depth):
+            arrays[f"blocks.{i}.{suffix}"] = export(stacked[i])
+    arrays["pos_embed"] = get_2d_sincos_pos_embed(d, input_size // patch_size)[None]
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in arrays.items()}
+
+
+def load_torch_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A local reference `.pt` file -> flat {name: CPU tensor} state dict.
+    Trainer checkpoints resolve to "ema" when present (and `prefer_ema`),
+    else "model". The file is the caller's own, so its pickled extras (the
+    trainer's argparse namespace) are allowed."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
+        ckpt = ckpt["ema" if (prefer_ema and "ema" in ckpt) else "model"]
+    return {k: v.detach().cpu() for k, v in ckpt.items()}

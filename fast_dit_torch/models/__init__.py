@@ -1,0 +1,29 @@
+"""Model layer: the dense DiT backbones and their registry."""
+
+from .dit import DiT, DiT_models, dit_config
+from .layers import (
+    Attention,
+    DiTBlock,
+    FinalLayer,
+    LabelEmbedder,
+    Mlp,
+    PatchEmbed,
+    TimestepEmbedder,
+    modulate,
+)
+from .pos_embed import get_2d_sincos_pos_embed
+
+__all__ = [
+    "DiT",
+    "DiT_models",
+    "dit_config",
+    "Attention",
+    "DiTBlock",
+    "FinalLayer",
+    "LabelEmbedder",
+    "Mlp",
+    "PatchEmbed",
+    "TimestepEmbedder",
+    "modulate",
+    "get_2d_sincos_pos_embed",
+]

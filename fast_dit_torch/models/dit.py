@@ -1,0 +1,146 @@
+"""The DiT backbone (counterpart of `fast_dit_tpu/models/dit.py`, dense).
+
+patchify -> frozen 2D sin-cos pos-embed -> depth x adaLN-Zero blocks ->
+FinalLayer -> unpatchify, with c = t_emb + y_emb, learn_sigma channel
+doubling, the CFG doubled-batch `forward_with_cfg` with its 3-channel
+guidance quirk, and the 12 dense configs of the registry.
+
+Blocks are an `nn.ModuleList` (`blocks.{i}.*`, the reference names), not a
+scan. `pos_embed` is a frozen fp32 (1, N, D) entry of the state dict, as the
+reference expects. Parameters are fp32; `dtype` is the compute dtype.
+
+The constructor builds the model on `device` ("cuda" unless the caller asks
+for the CPU) and initialises it from `seed` with a CPU `torch.Generator`,
+so the same seed gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+from torch import nn
+
+from ..utils.device import resolve_device
+from .layers import DiTBlock, FinalLayer, LabelEmbedder, PatchEmbed, TimestepEmbedder
+from .pos_embed import get_2d_sincos_pos_embed
+
+__all__ = ["DiT", "DiT_models", "dit_config"]
+
+
+def _xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
+    fan_out, fan_in = w.shape[0], w[0].numel()
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=g)
+
+
+class DiT(nn.Module):
+    """Diffusion Transformer."""
+
+    def __init__(self, input_size=32, patch_size=2, in_channels=4, hidden_size=1152,
+                 depth=28, num_heads=16, mlp_ratio=4.0, class_dropout_prob=0.1,
+                 num_classes=1000, learn_sigma=True, dtype=torch.float32,
+                 attn_backend="auto", device="cuda", seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        self.input_size = input_size
+        self.patch_size = patch_size
+        self.in_channels = in_channels
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.hidden_size = hidden_size
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_classes = num_classes
+        self.dtype = dtype
+
+        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size, dtype=dtype)
+        self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
+        self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
+        grid = input_size // patch_size
+        pos = get_2d_sincos_pos_embed(hidden_size, grid).astype("float32")[None]
+        self.pos_embed = nn.Parameter(torch.from_numpy(pos), requires_grad=False)
+        self.blocks = nn.ModuleList([
+            DiTBlock(hidden_size, num_heads, mlp_ratio=mlp_ratio, dtype=dtype,
+                     attn_backend=attn_backend)
+            for _ in range(depth)])
+        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels, dtype=dtype)
+        self.initialize_weights(seed)
+        self.to(device)
+
+    def initialize_weights(self, seed: int) -> None:
+        """The reference init: xavier-uniform linears and patch embedding,
+        N(0, 0.02) label table and timestep MLP, zeroed adaLN and head."""
+        g = torch.Generator().manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                _xavier_uniform_(m.weight, g)
+                nn.init.zeros_(m.bias)
+        _xavier_uniform_(self.x_embedder.proj.weight, g)
+        nn.init.zeros_(self.x_embedder.proj.bias)
+        with torch.no_grad():
+            self.y_embedder.embedding_table.weight.normal_(0.0, 0.02, generator=g)
+            self.t_embedder.mlp[0].weight.normal_(0.0, 0.02, generator=g)
+            self.t_embedder.mlp[2].weight.normal_(0.0, 0.02, generator=g)
+        for block in self.blocks:
+            nn.init.zeros_(block.adaLN_modulation[-1].weight)
+            nn.init.zeros_(block.adaLN_modulation[-1].bias)
+        for lin in (self.final_layer.adaLN_modulation[-1], self.final_layer.linear):
+            nn.init.zeros_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def unpatchify(self, x):
+        """(B, N, p*p*C_out) -> (B, C_out, H, W)."""
+        c, p = self.out_channels, self.patch_size
+        h = w = int(x.shape[1] ** 0.5)
+        assert h * w == x.shape[1]
+        x = x.reshape(x.shape[0], h, w, p, p, c)
+        x = torch.einsum("nhwpqc->nchpwq", x)
+        return x.reshape(x.shape[0], c, h * p, w * p)
+
+    def forward(self, x, t, y, force_drop_ids=None):
+        """x: (B, C, H, W), t: (B,) int timesteps, y: (B,) int labels ->
+        (B, out_channels, H, W) fp32."""
+        x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
+        t_emb = self.t_embedder(t)
+        c = t_emb + self.y_embedder(y, force_drop_ids).to(t_emb.dtype)
+        for block in self.blocks:
+            x = block(x, c)
+        x = self.final_layer(x, c)
+        return self.unpatchify(x).float()
+
+    def forward_with_cfg(self, x, t, y, cfg_scale, guidance_channels: int = 3):
+        """Classifier-free-guidance doubled-batch forward. The batch is
+        [cond ; uncond]; only the first half of x is used (mirrored), and
+        guidance applies to the first `guidance_channels` channels only (3,
+        the reference's quirk; pass `in_channels` for standard CFG)."""
+        half = x[: x.shape[0] // 2]
+        model_out = self(torch.cat([half, half], dim=0), t, y)
+        eps, rest = model_out[:, :guidance_channels], model_out[:, guidance_channels:]
+        cond_eps, uncond_eps = eps.chunk(2, dim=0)
+        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        eps = torch.cat([half_eps, half_eps], dim=0)
+        return torch.cat([eps, rest], dim=1)
+
+
+def dit_config(depth, hidden_size, patch_size, num_heads):
+    """Constructor partial for a named config."""
+    return functools.partial(DiT, depth=depth, hidden_size=hidden_size,
+                             patch_size=patch_size, num_heads=num_heads)
+
+
+DiT_models = {
+    "DiT-XL/2": dit_config(28, 1152, 2, 16),
+    "DiT-XL/4": dit_config(28, 1152, 4, 16),
+    "DiT-XL/8": dit_config(28, 1152, 8, 16),
+    "DiT-L/2": dit_config(24, 1024, 2, 16),
+    "DiT-L/4": dit_config(24, 1024, 4, 16),
+    "DiT-L/8": dit_config(24, 1024, 8, 16),
+    "DiT-B/2": dit_config(12, 768, 2, 12),
+    "DiT-B/4": dit_config(12, 768, 4, 12),
+    "DiT-B/8": dit_config(12, 768, 8, 12),
+    "DiT-S/2": dit_config(12, 384, 2, 6),
+    "DiT-S/4": dit_config(12, 384, 4, 6),
+    "DiT-S/8": dit_config(12, 384, 8, 6),
+}

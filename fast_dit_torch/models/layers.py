@@ -1,0 +1,220 @@
+"""DiT building blocks as `nn.Module`s (counterpart of
+`fast_dit_tpu/models/layers.py`, dense path only: no quant, tome or MoE).
+
+Module and parameter names are the reference torch names
+(`fast_dit_tpu/ckpt/torch_import.py:97-121`), so a reference `.pt` state
+dict loads with `load_state_dict(strict=True)`.
+
+Every module carries a `dtype`, as flax's modules do: parameters stay fp32
+and are cast to the compute dtype where they are used; LayerNorm statistics
+stay fp32. `torch.autocast` is not used, since its casting rules differ.
+
+The qkv projection is a plain `Linear(D, 3D)` whose output rows are in
+(3, H, hd) order: it is already the packed (B, N, 3D) layout the attention
+kernel reads, so there is no permute and no split copy.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_qkv, resolve_backend
+
+__all__ = [
+    "modulate",
+    "Linear",
+    "PatchEmbed",
+    "TimestepEmbedder",
+    "LabelEmbedder",
+    "Attention",
+    "Mlp",
+    "DiTBlock",
+    "FinalLayer",
+]
+
+
+def modulate(x, shift, scale):
+    """x * (1 + scale) + shift with (B, D) conditioners over (B, N, D) tokens."""
+    return x * (1 + scale[:, None, :]) + shift[:, None, :]
+
+
+def _layer_norm(x, dtype):
+    """LayerNorm with no affine, eps 1e-6, fp32 statistics."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(dtype)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` whose fp32 parameters are cast to `dtype` at use."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class _ConvWeight(nn.Module):
+    """Holds the reference conv's (D, C, p, p) weight and (D,) bias."""
+
+    def __init__(self, hidden_size, in_channels, patch_size):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(hidden_size, in_channels, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.zeros(hidden_size))
+
+
+class PatchEmbed(nn.Module):
+    """Patchify NCHW input to (B, N, D) tokens: a reshape and one linear over
+    patches flattened in (C, ph, pw) order, which is the reference's
+    stride == kernel conv exactly (and no cuDNN TF32 convolution)."""
+
+    def __init__(self, patch_size, in_channels, hidden_size, dtype=torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.proj = _ConvWeight(hidden_size, in_channels, patch_size)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        p = self.patch_size
+        assert H % p == 0 and W % p == 0, f"input {H}x{W} not divisible by patch {p}"
+        gh, gw = H // p, W // p
+        x = x.reshape(B, C, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
+        x = x.reshape(B, gh * gw, C * p * p)
+        w = self.proj.weight.reshape(self.proj.weight.shape[0], -1)
+        return F.linear(x.to(self.dtype), w.to(self.dtype), self.proj.bias.to(self.dtype))
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal frequency embedding + MLP."""
+
+    def __init__(self, hidden_size, frequency_embedding_size=256, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.frequency_embedding_size = frequency_embedding_size
+        self.mlp = nn.Sequential(
+            Linear(frequency_embedding_size, hidden_size, dtype=dtype),
+            nn.SiLU(),
+            Linear(hidden_size, hidden_size, dtype=dtype),
+        )
+
+    @staticmethod
+    def timestep_embedding(t, dim, max_period=10000):
+        """[cos | sin] embedding (cos first); frequencies
+        exp(-log(P) * i / half), fp32."""
+        half = dim // 2
+        freqs = torch.exp(-math.log(max_period)
+                          * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = t.float()[:, None] * freqs[None]
+        embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        if dim % 2:
+            embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+        return embedding
+
+    def forward(self, t):
+        return self.mlp(self.timestep_embedding(t, self.frequency_embedding_size))
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding; the null (CFG) class id is `num_classes`.
+    Training-time label dropout comes with the training slice."""
+
+    def __init__(self, num_classes, hidden_size, dropout_prob):
+        super().__init__()
+        self.num_classes = num_classes
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
+
+    def forward(self, labels, force_drop_ids=None):
+        if force_drop_ids is not None:
+            labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over the packed qkv projection."""
+
+    def __init__(self, dim, num_heads, qkv_bias=True, dtype=torch.float32,
+                 attn_backend="auto"):
+        super().__init__()
+        assert dim % num_heads == 0
+        self.dtype = dtype
+        self.num_heads = num_heads
+        self.attn_backend = resolve_backend(attn_backend)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, x):
+        qkv = self.qkv(x)  # (B, N, 3D): columns in (3, H, hd) order
+        out = attention_qkv(qkv, self.num_heads, backend=self.attn_backend)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    """Linear -> GELU(tanh) -> Linear."""
+
+    def __init__(self, in_features, hidden_features, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = Linear(hidden_features, in_features, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class DiTBlock(nn.Module):
+    """adaLN-Zero transformer block.
+
+    `forward` is the standard block; `full_step` also returns the attention
+    and MLP branch outputs, and `cached_step` reuses them with fresh adaLN
+    gates (the layer cache the cached samplers will use).
+    """
+
+    def __init__(self, hidden_size, num_heads, mlp_ratio=4.0, dtype=torch.float32,
+                 attn_backend="auto"):
+        super().__init__()
+        self.dtype = dtype
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype, attn_backend=attn_backend)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), Linear(hidden_size, 6 * hidden_size, dtype=dtype))
+
+    def _modulation(self, c):
+        return self.adaLN_modulation(c).chunk(6, dim=-1)
+
+    def forward(self, x, c):
+        return self.full_step(x, c)[0]
+
+    def full_step(self, x, c):
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
+        attn_out = self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa))
+        x = x + gate_msa[:, None, :] * attn_out
+        mlp_out = self.mlp(modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp))
+        x = x + gate_mlp[:, None, :] * mlp_out
+        return x, (attn_out, mlp_out)
+
+    def cached_step(self, x, c, attn_out, mlp_out):
+        _, _, gate_msa, _, _, gate_mlp = self._modulation(c)
+        x = x + gate_msa[:, None, :] * attn_out
+        return x + gate_mlp[:, None, :] * mlp_out
+
+
+class FinalLayer(nn.Module):
+    """adaLN (shift, scale) + linear head."""
+
+    def __init__(self, hidden_size, patch_size, out_channels, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.linear = Linear(hidden_size, patch_size * patch_size * out_channels, dtype=dtype)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), Linear(hidden_size, 2 * hidden_size, dtype=dtype))
+
+    def forward(self, x, c):
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        return self.linear(modulate(_layer_norm(x, self.dtype), shift, scale))

@@ -1,0 +1,133 @@
+"""Sample latents from a DiT: the port's single-device sampler CLI.
+
+    python -m fast_dit_torch.sample --model DiT-XL/2 --ckpt random --bf16
+
+Counterpart of the repository's `sample.py`: fixed seed, registry model,
+`create_diffusion(str(steps))`, the CFG doubled batch ([z; z] with labels
+[y; null]), `p_sample_loop` (or `ddim_sample_loop`) over `forward_with_cfg`
+with `clip_denoised=False`, then the conditional half is kept. The port has
+no VAE yet, so it saves the latents to `sample.npy` and a latent preview to
+`sample.png` in the working directory, as `sample.py` does without VAE
+weights.
+
+Weights: a local reference-format `.pt` (`--ckpt PATH`; nothing is ever
+downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
+perturbation of every parameter, since the zero-initialised heads would
+otherwise make every output zero.
+
+Runs on the card unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .ckpt import load_torch_checkpoint
+from .diffusion import create_diffusion
+from .models import DiT_models
+from .ops.attention import BACKENDS
+from .utils.device import resolve_device
+from .utils.image import save_image
+
+# the reference demo's labels
+CLASS_LABELS = [207, 360, 387, 974, 88, 979, 417, 279]
+
+
+def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
+    """Add std * N(0, 1) to every trainable parameter (pos_embed is frozen
+    and stays), drawn from a CPU generator so every device sees the same
+    weights."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.requires_grad:
+                p.add_(std * torch.randn(p.shape, generator=g).to(p.device))
+
+
+def build(args):
+    """(model, diffusion) on `args.device`, weights loaded."""
+    device = resolve_device(args.device)
+    model = DiT_models[args.model](
+        input_size=args.image_size // 8, num_classes=args.num_classes,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        attn_backend=args.attn_backend, device=device, seed=args.seed)
+    if args.ckpt == "random":
+        perturb_(model)
+    else:
+        path = args.ckpt or f"DiT-XL-2-{args.image_size}x{args.image_size}.pt"
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"no checkpoint at {path!r}: the port loads local reference .pt "
+                f"files only and never downloads; pass --ckpt PATH or --ckpt random")
+        model.load_state_dict(load_torch_checkpoint(path), strict=True)
+    model.eval()
+    diffusion = create_diffusion(str(args.num_sampling_steps), device=device)
+    return model, diffusion
+
+
+@torch.inference_mode()
+def sample_latents(args, model, diffusion) -> torch.Tensor:
+    """The sampling chain: (len(CLASS_LABELS), C, L, L) fp32 latents on the
+    model's device."""
+    device = model.pos_embed.device
+    g = torch.Generator(device=device).manual_seed(args.seed)
+    n = len(CLASS_LABELS)
+    latent = args.image_size // 8
+    z = torch.randn(n, model.in_channels, latent, latent, generator=g, device=device)
+    if args.cfg_scale > 1.0:
+        z = torch.cat([z, z], dim=0)
+        y = torch.tensor(CLASS_LABELS + [args.num_classes] * n, device=device)
+        model_fn = lambda x, t: model.forward_with_cfg(x, t, y, args.cfg_scale)
+    else:
+        # at cfg <= 1 sample the n latents directly
+        y = torch.tensor(CLASS_LABELS, device=device)
+        model_fn = lambda x, t: model(x, t, y)
+    loop = diffusion.p_sample_loop if args.sampler == "ddpm" else diffusion.ddim_sample_loop
+    samples = loop(model_fn, z.shape, noise=z, generator=g, clip_denoised=False)
+    return samples[:n]
+
+
+def main(args) -> None:
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"fast_dit_torch.sample: {e}") from None
+    model, diffusion = build(args)
+    out = sample_latents(args, model, diffusion).cpu().numpy()
+    np.save("sample.npy", out)
+    save_image(out[:, :3], "sample.png", nrow=4,
+               value_range=(float(out.min()), float(out.max())))
+    print("No VAE in the port yet: saved raw latents to sample.npy and a latent "
+          "preview to sample.png")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # reference-compatible flags
+    parser.add_argument("--model", type=str, choices=list(DiT_models), default="DiT-XL/2")
+    parser.add_argument("--vae", type=str, choices=["ema", "mse"], default="mse",
+                        help="SD-VAE variant of the reference; the port has no "
+                             "VAE decode yet and saves latents")
+    parser.add_argument("--image-size", type=int, choices=[256, 512], default=256)
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--cfg-scale", type=float, default=4.0)
+    parser.add_argument("--num-sampling-steps", type=int, default=250)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="local reference .pt checkpoint, or 'random'")
+    # the port's own
+    parser.add_argument("--attn-backend", type=str, default="auto", choices=BACKENDS,
+                        help="auto: the CUDA kernel on the card; einsum: the plain twin")
+    parser.add_argument("--bf16", action="store_true", help="bf16 activations")
+    parser.add_argument("--sampler", type=str, default="ddpm", choices=["ddpm", "ddim"])
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main(parse_args())

@@ -3,7 +3,12 @@
 Slice 1 covers class-conditional DiT sampling: the models, the diffusion
 sampling core, the checkpoint converter, the sampler CLI
 (`python -m fast_dit_torch.sample`) and the hand-written CUDA packed-qkv
-attention forward (`csrc/flash_attention_fwd.cu`).
+attention forward (`csrc/flash_attention_fwd.cu`). Slice 2 covers training:
+the loss functions, the train step with its three optimizer routes, the
+feature data, the trainer CLI (`python -m fast_dit_torch.train`) and two
+more hand-written CUDA kernels, the attention backward
+(`csrc/flash_attention_bwd.cu`) and the fused AdamW + EMA update
+(`csrc/fused_update.cu`).
 """
 
 __version__ = "0.1.0"

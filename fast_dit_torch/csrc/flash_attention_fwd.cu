@@ -42,6 +42,12 @@
 // exact softmax equals the JAX fp32 path everywhere and the JAX bf16 path
 // wherever logits are below 50.
 //
+// For training, the kernel also writes each row's log-sum-exp in the log2
+// domain (lse2 = m + log2(l), with the scores already in scale*log2(e)
+// units), fp32 (B, H, S), when given a pointer for it. The backward kernel
+// (`flash_attention_bwd.cu`) rebuilds p = exp2(s * scale_log2 - lse2) from
+// it; sampling passes a null pointer and writes nothing more.
+//
 // Interface: a plain C function, bound from Python with ctypes. It launches
 // on the given stream, allocates nothing, and returns cudaGetLastError().
 
@@ -106,8 +112,8 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ qkv, float* dst,
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int H,
-                     float scale_log2) {
+attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, float scale_log2) {
     constexpr int NDG = HD / CG;  // output columns per thread
     extern __shared__ float smem[];
     float* qt = smem;              // [HD][BQ]
@@ -221,6 +227,7 @@ attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int 
         T* dst = out + ((int64_t)b * S + row) * D + h * HD + cg;
 #pragma unroll
         for (int j = 0; j < NDG; ++j) dst[CG * j] = from_f32<T>(acc[i][j] * inv);
+        if (lse != nullptr && cg == 0) lse[((int64_t)b * H + h) * S + row] = m[i] + log2f(l[i]);
     }
 }
 
@@ -229,8 +236,8 @@ constexpr size_t smem_bytes(int hd) {
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* qkv, void* out, int B, int S, int H, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* qkv, void* out, float* lse, int B, int S, int H,
+                   float scale, cudaStream_t stream) {
     constexpr size_t smem = smem_bytes(HD);
     // above 48 KB a block's shared memory must be asked for; the attribute is
     // per device, so it is set on every call (a host-side store, no sync)
@@ -241,16 +248,16 @@ cudaError_t launch(const void* qkv, void* out, int B, int S, int H, float scale,
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     const float scale_log2 = scale * 1.4426950408889634f;
     attention_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), S, H, scale_log2);
+        static_cast<const T*>(qkv), static_cast<T*>(out), lse, S, H, scale_log2);
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const void* qkv, void* out, int B, int S, int H, int hd,
-                        float scale, cudaStream_t stream) {
+cudaError_t dispatch_hd(const void* qkv, void* out, float* lse, int B, int S, int H,
+                        int hd, float scale, cudaStream_t stream) {
     switch (hd) {
 #define FDT_HD_CASE(N) \
-    case N: return launch<T, N>(qkv, out, B, S, H, scale, stream);
+    case N: return launch<T, N>(qkv, out, lse, B, S, H, scale, stream);
         FDT_HD_CASE(8) FDT_HD_CASE(16) FDT_HD_CASE(24) FDT_HD_CASE(32)
         FDT_HD_CASE(40) FDT_HD_CASE(48) FDT_HD_CASE(56) FDT_HD_CASE(64)
         FDT_HD_CASE(72) FDT_HD_CASE(80) FDT_HD_CASE(88) FDT_HD_CASE(96)
@@ -266,13 +273,15 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. qkv (B, S, 3*H*hd) and out (B, S, H*hd)
 // are contiguous and 16-byte aligned; hd is a multiple of 8, at most 128.
-int fdt_attention_fwd(const void* qkv, void* out, int B, int S, int H, int hd,
+// lse is null, or fp32 (B, H, S).
+int fdt_attention_fwd(const void* qkv, void* out, void* lse, int B, int S, int H, int hd,
                       float scale, int dtype, void* stream) {
     if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return (int)dispatch_hd<float>(qkv, out, B, S, H, hd, scale, st);
-    if (dtype == 1) return (int)dispatch_hd<__nv_bfloat16>(qkv, out, B, S, H, hd, scale, st);
+    float* l = static_cast<float*>(lse);
+    if (dtype == 0) return (int)dispatch_hd<float>(qkv, out, l, B, S, H, hd, scale, st);
+    if (dtype == 1) return (int)dispatch_hd<__nv_bfloat16>(qkv, out, l, B, S, H, hd, scale, st);
     return (int)cudaErrorInvalidValue;
 }
 

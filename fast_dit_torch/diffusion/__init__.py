@@ -5,8 +5,8 @@ math and the sampling loops.
 `fast_dit_tpu/diffusion/__init__.py:249-291` (1000-step linear schedule,
 epsilon prediction, LEARNED_RANGE variance, MSE loss, the "250" / "ddim50" /
 "10,15,20" respacing strings), plus the `device` the tables live on ("cuda"
-unless the caller asks for the CPU). The `Diffusion` facade carries only
-`q_sample`, `p_sample_loop` and `ddim_sample_loop` in this slice.
+unless the caller asks for the CPU). The `Diffusion` facade carries
+`q_sample`, `training_losses`, `p_sample_loop` and `ddim_sample_loop`.
 """
 
 from __future__ import annotations
@@ -48,6 +48,17 @@ class Diffusion:
 
     def q_sample(self, x_start, t, noise):
         return gaussian.q_sample(self.schedule, x_start, t, noise)
+
+    def training_losses(self, model_fn, x_start, t, model_kwargs=None, noise=None,
+                        generator=None):
+        """Per-example loss terms; `noise` is drawn from `generator` when not
+        given (the JAX facade's `rng`)."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                                device=x_start.device)
+        kwargs = model_kwargs or {}
+        return gaussian.training_losses(self.schedule, lambda x, tt: model_fn(x, tt, **kwargs),
+                                        x_start, t, noise)
 
     def p_sample_loop(self, model_fn, shape, *, generator=None, noise=None,
                       step_noise=None, clip_denoised=True, dtype=torch.float32):

@@ -1,23 +1,30 @@
 """Gaussian-diffusion sampling math as plain tensor functions of a
 `DiffusionSchedule`.
 
-Counterpart of the sampling side of `fast_dit_tpu/diffusion/gaussian.py`
-(:113-342): `extract`, `q_sample`, `q_posterior_mean_variance`, the
-prediction helpers, `p_mean_variance` with the LEARNED_RANGE split, and the
-DDPM / DDIM single steps. Functions take the model OUTPUT, so the caller owns
-the model call. `training_losses` and `vb_terms_bpd` come with the training
-slice.
+Counterpart of `fast_dit_tpu/diffusion/gaussian.py`: the small math
+utilities (:60-110), `extract`, `q_sample`, `q_posterior_mean_variance`, the
+prediction helpers, `p_mean_variance` with the LEARNED_RANGE split, the
+DDPM / DDIM single steps (:113-342), and the training side, `vb_terms_bpd`
+and `training_losses` (:374-459). Sampling functions take the model OUTPUT,
+so the caller owns the model call; `training_losses` calls `model_fn` once.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
-from .schedule import DiffusionSchedule, MeanType, VarType
+from .schedule import DiffusionSchedule, LossType, MeanType, VarType
 
 __all__ = [
+    "mean_flat",
+    "normal_kl",
+    "approx_standard_normal_cdf",
+    "discretized_gaussian_log_likelihood",
+    "vb_terms_bpd",
+    "training_losses",
     "extract",
     "q_sample",
     "q_posterior_mean_variance",
@@ -29,6 +36,37 @@ __all__ = [
     "p_sample_step",
     "ddim_step",
 ]
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dimensions."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal Gaussians."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    """tanh-based approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretized to uint8 bins scaled to
+    [-1, 1]."""
+    assert x.shape == means.shape == log_scales.shape
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int, dtype=None) -> torch.Tensor:
@@ -160,3 +198,64 @@ def ddim_step(sched: DiffusionSchedule, model_output, x, t, noise=None, *,
     else:
         sample = mean_pred + _nonzero_mask(t, nd, x.dtype) * sigma * noise
     return StepResult(sample, out.pred_xstart)
+
+
+def vb_terms_bpd(sched: DiffusionSchedule, model_output, x_start, x_t, t, *,
+                 clip_denoised: bool = True):
+    """Per-example variational-bound term in bits: KL(q(x_{t-1} | x_t, x_0)
+    || p(x_{t-1} | x_t)), or the decoder NLL at t == 0. Returns
+    (output (B,), pred_xstart)."""
+    true_mean, _, true_log_variance_clipped = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(sched, model_output, x_t, t, clip_denoised=clip_denoised)
+    kl = normal_kl(true_mean, true_log_variance_clipped, out.mean, out.log_variance)
+    kl = mean_flat(kl) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out.mean, log_scales=0.5 * out.log_variance)
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return torch.where(t == 0, decoder_nll, kl), out.pred_xstart
+
+
+def training_losses(sched: DiffusionSchedule, model_fn: Callable, x_start, t, noise, *,
+                    map_timesteps: bool = True) -> dict:
+    """Per-example training losses {"loss", and "mse", "vb" for the MSE
+    types}. `model_fn(x_t, t_model)` is called once; `t` is in respaced index
+    space and is mapped through `timestep_map` before the model sees it. The
+    hybrid MSE + VB loss learns the variance through the VB term with the
+    mean prediction detached, so the VB gradient never reaches the mean."""
+    assert noise.shape == x_start.shape
+    x_t = q_sample(sched, x_start, t, noise)
+    t_model = sched.timestep_map[t] if map_timesteps else t
+
+    terms = {}
+    if sched.loss_type in (LossType.KL, LossType.RESCALED_KL):
+        model_output = model_fn(x_t, t_model)
+        terms["loss"], _ = vb_terms_bpd(sched, model_output, x_start, x_t, t,
+                                        clip_denoised=False)
+        if sched.loss_type == LossType.RESCALED_KL:
+            terms["loss"] = terms["loss"] * sched.num_timesteps
+    elif sched.loss_type in (LossType.MSE, LossType.RESCALED_MSE):
+        model_output = model_fn(x_t, t_model)
+        if sched.var_type in (VarType.LEARNED, VarType.LEARNED_RANGE):
+            B, C = x_t.shape[:2]
+            assert model_output.shape == (B, C * 2, *x_t.shape[2:])
+            model_output, model_var_values = torch.split(model_output, C, dim=1)
+            frozen_out = torch.cat([model_output.detach(), model_var_values], dim=1)
+            vb, _ = vb_terms_bpd(sched, frozen_out, x_start, x_t, t, clip_denoised=False)
+            if sched.loss_type == LossType.RESCALED_MSE:
+                # divided by 1000 for equivalence with the initial implementation
+                vb = vb * (sched.num_timesteps / 1000.0)
+            terms["vb"] = vb
+        if sched.mean_type == MeanType.PREVIOUS_X:
+            target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+        elif sched.mean_type == MeanType.START_X:
+            target = x_start
+        elif sched.mean_type == MeanType.EPSILON:
+            target = noise
+        else:
+            raise NotImplementedError(sched.mean_type)
+        assert model_output.shape == target.shape == x_start.shape
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+    else:
+        raise NotImplementedError(sched.loss_type)
+    return terms

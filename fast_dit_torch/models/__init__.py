@@ -1,6 +1,6 @@
 """Model layer: the dense DiT backbones and their registry."""
 
-from .dit import DiT, DiT_models, dit_config
+from .dit import REMAT_POLICIES, DiT, DiT_models, dit_config
 from .layers import (
     Attention,
     DiTBlock,
@@ -17,6 +17,7 @@ __all__ = [
     "DiT",
     "DiT_models",
     "dit_config",
+    "REMAT_POLICIES",
     "Attention",
     "DiTBlock",
     "FinalLayer",

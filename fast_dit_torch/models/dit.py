@@ -6,8 +6,15 @@ doubling, the CFG doubled-batch `forward_with_cfg` with its 3-channel
 guidance quirk, and the 12 dense configs of the registry.
 
 Blocks are an `nn.ModuleList` (`blocks.{i}.*`, the reference names), not a
-scan. `pos_embed` is a frozen fp32 (1, N, D) entry of the state dict, as the
-reference expects. Parameters are fp32; `dtype` is the compute dtype.
+scan. `pos_embed` is a frozen fp32 (1, N, D) buffer: an entry of the state
+dict, as the reference expects, but not a parameter, so it stays fp32 when
+training stores the parameters in bf16. Parameters are fp32 unless the
+trainer casts them; `dtype` is the compute dtype.
+
+`remat=True` checkpoints every block (`torch.utils.checkpoint`, non-reentrant):
+the backward recomputes the whole block, the JAX "nothing" policy
+(`fast_dit_tpu/models/dit.py:133-146`). The "attn" and "attn_mlp" policies,
+which keep branch outputs, are not ported yet.
 
 The constructor builds the model on `device` ("cuda" unless the caller asks
 for the CPU) and initialises it from `seed` with a CPU `torch.Generator`,
@@ -21,12 +28,17 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.device import resolve_device
 from .layers import DiTBlock, FinalLayer, LabelEmbedder, PatchEmbed, TimestepEmbedder
 from .pos_embed import get_2d_sincos_pos_embed
 
-__all__ = ["DiT", "DiT_models", "dit_config"]
+__all__ = ["DiT", "DiT_models", "dit_config", "REMAT_POLICIES"]
+
+# what the backward keeps instead of recomputing, with remat on; the JAX
+# package also has "attn" and "attn_mlp"
+REMAT_POLICIES = ("nothing",)
 
 
 def _xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
@@ -42,9 +54,13 @@ class DiT(nn.Module):
     def __init__(self, input_size=32, patch_size=2, in_channels=4, hidden_size=1152,
                  depth=28, num_heads=16, mlp_ratio=4.0, class_dropout_prob=0.1,
                  num_classes=1000, learn_sigma=True, dtype=torch.float32,
-                 attn_backend="auto", device="cuda", seed=0):
+                 attn_backend="auto", remat=False, remat_policy="nothing",
+                 device="cuda", seed=0):
         super().__init__()
         device = resolve_device(device)
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat policy {remat_policy!r} is not ported yet; the port "
+                             f"has {REMAT_POLICIES}")
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -54,13 +70,14 @@ class DiT(nn.Module):
         self.num_heads = num_heads
         self.num_classes = num_classes
         self.dtype = dtype
+        self.remat = remat
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size, dtype=dtype)
         self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
         grid = input_size // patch_size
         pos = get_2d_sincos_pos_embed(hidden_size, grid).astype("float32")[None]
-        self.pos_embed = nn.Parameter(torch.from_numpy(pos), requires_grad=False)
+        self.register_buffer("pos_embed", torch.from_numpy(pos))
         self.blocks = nn.ModuleList([
             DiTBlock(hidden_size, num_heads, mlp_ratio=mlp_ratio, dtype=dtype,
                      attn_backend=attn_backend)
@@ -99,14 +116,22 @@ class DiT(nn.Module):
         x = torch.einsum("nhwpqc->nchpwq", x)
         return x.reshape(x.shape[0], c, h * p, w * p)
 
-    def forward(self, x, t, y, force_drop_ids=None):
+    def forward(self, x, t, y, *, train=False, force_drop_ids=None, generator=None):
         """x: (B, C, H, W), t: (B,) int timesteps, y: (B,) int labels ->
-        (B, out_channels, H, W) fp32."""
+        (B, out_channels, H, W) fp32. With `train`, labels are dropped to
+        the null class with probability class_dropout_prob, drawn from
+        `generator`."""
         x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
         t_emb = self.t_embedder(t)
-        c = t_emb + self.y_embedder(y, force_drop_ids).to(t_emb.dtype)
+        y_emb = self.y_embedder(y, train, force_drop_ids, generator)
+        c = t_emb + y_emb.to(t_emb.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, c)
+            if remat:
+                # blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(block, x, c, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, c)
         x = self.final_layer(x, c)
         return self.unpatchify(x).float()
 

@@ -122,17 +122,31 @@ class TimestepEmbedder(nn.Module):
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label embedding; the null (CFG) class id is `num_classes`.
-    Training-time label dropout comes with the training slice."""
+    """Class-label embedding with CFG null-class dropout; the null class id
+    is `num_classes` (`fast_dit_tpu/models/layers.py:123-152`).
+
+    In training, each label is dropped with probability `dropout_prob`, the
+    draw coming from the explicit `generator` (flax's "label_drop" rng has
+    no torch counterpart); `force_drop_ids` (1 = drop) wins over the draw,
+    in and out of training."""
 
     def __init__(self, num_classes, hidden_size, dropout_prob):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels, force_drop_ids=None):
-        if force_drop_ids is not None:
-            labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
+    def token_drop(self, labels, generator=None, force_drop_ids=None):
+        if force_drop_ids is None:
+            u = torch.rand(labels.shape[0], generator=generator, device=labels.device)
+            drop = u < self.dropout_prob
+        else:
+            drop = force_drop_ids == 1
+        return torch.where(drop, self.num_classes, labels)
+
+    def forward(self, labels, train=False, force_drop_ids=None, generator=None):
+        if (train and self.dropout_prob > 0) or force_drop_ids is not None:
+            labels = self.token_drop(labels, generator, force_drop_ids)
         return self.embedding_table(labels)
 
 

@@ -20,8 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "launch_counts", "reset_launch_counts",
-           "check_status"]
+__all__ = ["SOURCES", "build_all", "load", "function", "launch_counts",
+           "reset_launch_counts", "check_status"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,14 +30,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # library name -> source file under csrc/
-SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu"}
+SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "fused_update": "fused_update.cu"}
 
 # kernel name -> launches since the last reset; each wrapper adds one where
-# it launches its kernel, and nowhere else
-launch_counts = {"attention_fwd": 0}
+# it launches its kernel, and nowhere else (the attention backward counts
+# one per call, though it launches two passes)
+launch_counts = {"attention_fwd": 0, "attention_bwd": 0, "fused_adamw_ema": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fns: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -99,9 +103,23 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def check_status(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point returned a nonzero cudaError_t."""
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of library `name`, typed once: int return,
+    `argtypes` (ctypes.c_void_p for every pointer and the stream)."""
+    key = (name, symbol)
+    if key not in _fns:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[key] = fn
+    return _fns[key]
+
+
+def check_status(name: str, code: int, what: str) -> None:
+    """Raise if a C entry point of library `name` returned a nonzero
+    cudaError_t."""
     if code != 0:
+        lib = load(name)
         lib.fdt_error_string.restype = ctypes.c_char_p
         lib.fdt_error_string.argtypes = [ctypes.c_int]
         msg = lib.fdt_error_string(code).decode()

@@ -1,0 +1,283 @@
+"""Train a DiT on pre-extracted latent features: the port's trainer CLI.
+
+    python -m fast_dit_torch.train --synthetic-data --model DiT-XL/2 --global-batch-size 32
+    python -m fast_dit_torch.train --device cpu --synthetic-data --model DiT-S/2 --max-steps 2
+
+Counterpart of the repository's `train.py`, with its flags (`:252-335`) and
+its log line "(step=...) Train Loss: ..., Train Steps/Sec: ...". Defaults
+are the reference trainer's: bf16 activations over fp32 parameters, remat
+on (the "nothing" policy), the 1000-step learned-sigma eps objective,
+uniform t, label dropout 0.1, AdamW lr 1e-4 wd 0, EMA 0.9999 warm-started
+as a copy. `--mixed-precision` stores bf16 parameters behind an fp32 master;
+`--fused-optimizer` adds bf16 mu and runs the fused AdamW + EMA kernel.
+
+Checkpoints are `torch.save` files in the reference trainer's layout,
+`{"model", "ema", "opt", "args"}` under the reference torch names, every
+`--ckpt-every` steps and at the end; `--export-pt` also writes the EMA state
+dict alone. Runs on the card unless `--device cpu` is given.
+
+Not ported yet, refused with a message: `--resume`, `--tp`, `--fsdp`,
+`--ep`, `--native-loader`, `--objective flow`, `--schedule-sampler
+loss-second-moment`, `--remat-policy attn|attn_mlp`, `--nu-dtype bf16` and
+`--factored-nu`. `--scan-unroll` is accepted and has no effect (the blocks
+are a Python loop, not a scan).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import time
+
+import torch
+
+from ..data import FeatureDataset, feature_batches, synthetic_features
+from ..diffusion import create_diffusion
+from ..models import REMAT_POLICIES, DiT_models
+from ..ops.attention import BACKENDS
+from ..ops.fused_update import FusedAdamWEmaState
+from ..utils.device import resolve_device
+from ..utils.logging import create_logger, make_experiment_dir
+from .mixed_precision import get_master_params
+from .train_lib import TrainState, create_train_state, ema_state_dict, make_train_step
+
+__all__ = ["parse_args", "check_args", "build", "device_batches", "save_checkpoint", "main"]
+
+
+def check_args(args) -> None:
+    """Raise SystemExit with a message for what the port does not run yet."""
+    refused = {
+        "--resume": args.resume,
+        "--tp > 1": args.tp > 1,
+        "--fsdp": args.fsdp,
+        "--ep > 1": args.ep > 1,
+        "--native-loader": args.native_loader,
+        "--objective flow": args.objective != "eps",
+        f"--schedule-sampler {args.schedule_sampler}": args.schedule_sampler != "uniform",
+        f"--remat-policy {args.remat_policy}": (not args.no_remat
+                                                and args.remat_policy not in REMAT_POLICIES),
+        "--nu-dtype bf16": args.nu_dtype != "fp32",
+        "--factored-nu": args.factored_nu,
+    }
+    bad = [flag for flag, on in refused.items() if on]
+    if bad:
+        raise SystemExit(f"fast_dit_torch.train: {', '.join(bad)} not ported yet "
+                         f"(see ROADMAP.md)")
+    if args.image_size % 8:
+        raise SystemExit("fast_dit_torch.train: image size must be divisible by 8")
+    if args.global_batch_size % args.grad_accum:
+        raise SystemExit(f"fast_dit_torch.train: global batch {args.global_batch_size} "
+                         f"must be divisible by grad_accum {args.grad_accum}")
+
+
+def build(args):
+    """(model, diffusion, state, train_step) on `args.device`: the seeded
+    model, the 1000-step training process, the optimizer route and the
+    step, whose draws come from a generator seeded with --global-seed."""
+    device = resolve_device(args.device)
+    model = DiT_models[args.model](
+        input_size=args.image_size // 8, num_classes=args.num_classes,
+        dtype=torch.float32 if args.fp32 else torch.bfloat16,
+        attn_backend=args.attn_backend, remat=not args.no_remat,
+        remat_policy=args.remat_policy, device=device, seed=args.global_seed)
+    model.train()
+    diffusion = create_diffusion("", device=device)
+    state = create_train_state(model, lr=None if args.fused_optimizer else args.lr,
+                               mixed_precision=args.mixed_precision,
+                               fused_optimizer=args.fused_optimizer)
+    generator = torch.Generator(device=device).manual_seed(args.global_seed)
+    train_step = make_train_step(model, diffusion.schedule, ema_decay=args.ema_decay,
+                                 grad_accum=args.grad_accum, lr=args.lr,
+                                 generator=generator)
+    return model, diffusion, state, train_step
+
+
+def device_batches(args, device, logger=None):
+    """One iterator of {"x", "y"} batches on `device` per epoch: synthetic
+    latents (one endless epoch) or the feature files."""
+    latent_size = args.image_size // 8
+    if args.synthetic_data:
+        epochs = [synthetic_features(args.global_batch_size, latent_size=latent_size,
+                                     num_classes=args.num_classes, seed=args.global_seed)]
+        if logger:
+            logger.info("Using synthetic latent features")
+    else:
+        feat_dir = f"{args.feature_path}/imagenet{args.image_size}_features"
+        label_dir = f"{args.feature_path}/imagenet{args.image_size}_labels"
+        dataset = FeatureDataset(feat_dir, label_dir)
+        if logger:
+            logger.info(f"Dataset contains {len(dataset):,} features ({args.feature_path})")
+        epochs = [feature_batches(dataset, args.global_batch_size, seed=args.global_seed + e,
+                                  num_epochs=1) for e in range(args.epochs)]
+    for batches in epochs:
+        yield ({"x": torch.from_numpy(b["x"]).to(device, non_blocking=True),
+                "y": torch.from_numpy(b["y"]).long().to(device, non_blocking=True)}
+               for b in batches)
+
+
+def _opt_state_dict(opt) -> dict:
+    if isinstance(opt, FusedAdamWEmaState):
+        return {"count": opt.count, "mu": opt.mu, "nu": opt.nu, "master": opt.master}
+    return opt.state_dict()
+
+
+def save_checkpoint(path: str, state: TrainState, args) -> None:
+    """The reference trainer's checkpoint: {"model", "ema", "opt", "args"};
+    "model" holds the fp32 weights (the master, where there is one)."""
+    model_sd = {k: v.detach().float() for k, v in state.model.state_dict().items()}
+    master = get_master_params(state.opt)
+    if master is not None:
+        names = [n for n, _ in state.model.named_parameters()]
+        model_sd.update(dict(zip(names, master)))
+    torch.save({"model": model_sd, "ema": ema_state_dict(state),
+                "opt": _opt_state_dict(state.opt), "args": args}, path)
+
+
+def main(args) -> None:
+    check_args(args)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"fast_dit_torch.train: {e}") from None
+    if args.matmul_precision != "default":
+        torch.set_float32_matmul_precision(args.matmul_precision)
+    experiment_dir = make_experiment_dir(args.results_dir, args.model)
+    checkpoint_dir = f"{experiment_dir}/checkpoints"
+    logger = create_logger(experiment_dir)
+    logger.info(f"Experiment directory created at {experiment_dir}")
+
+    model, diffusion, state, train_step = build(args)
+    logger.info(f"DiT Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    epochs = device_batches(args, device, logger)
+
+    profiler = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
+                                         else [])
+        profiler = profile(activities=acts)
+        profiler.__enter__()
+
+    train_steps, log_steps = 0, 0
+    running_loss = torch.zeros((), device=device)
+    start_time = time.time()
+    logger.info(f"Training for {args.epochs} epochs...")
+
+    # a SIGTERM or SIGINT mid-run checkpoints before the process exits
+    preempted = {"flag": False}
+
+    def _on_signal(signum, frame):
+        logger.info(f"Received signal {signum}; checkpointing before exit...")
+        preempted["flag"] = True
+
+    old_handlers = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        done = False
+        for epoch, batches in enumerate(epochs):
+            logger.info(f"Beginning epoch {epoch}...")
+            for batch in batches:
+                metrics = train_step(state, batch)
+                running_loss += metrics["loss"]
+                train_steps += 1
+                log_steps += 1
+                if train_steps % args.log_every == 0:
+                    avg_loss = running_loss.item() / log_steps  # waits for the card
+                    end_time = time.time()
+                    steps_per_sec = log_steps / (end_time - start_time)
+                    logger.info(f"(step={train_steps:07d}) Train Loss: {avg_loss:.4f}, "
+                                f"Train Steps/Sec: {steps_per_sec:.2f}")
+                    running_loss.zero_()
+                    log_steps = 0
+                    start_time = time.time()
+                if train_steps % args.ckpt_every == 0:
+                    save_checkpoint(f"{checkpoint_dir}/{train_steps:07d}.pt", state, args)
+                    logger.info(f"Saved checkpoint to {checkpoint_dir}/{train_steps:07d}.pt")
+                if preempted["flag"] or (args.max_steps and train_steps >= args.max_steps):
+                    done = True
+                    break
+            if done:
+                break
+    finally:
+        for s, h in old_handlers.items():
+            signal.signal(s, h)
+
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        logger.info(f"Wrote profiler trace to {args.profile_dir}")
+    save_checkpoint(f"{checkpoint_dir}/{train_steps:07d}.pt", state, args)
+    logger.info(f"Saved checkpoint to {checkpoint_dir}/{train_steps:07d}.pt")
+    if args.export_pt:
+        torch.save(ema_state_dict(state), f"{checkpoint_dir}/{train_steps:07d}-ema.pt")
+        logger.info(f"Exported the EMA state dict at step {train_steps}")
+    logger.info("Done!")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # reference-compatible flags
+    parser.add_argument("--feature-path", type=str, default="features")
+    parser.add_argument("--results-dir", type=str, default="results")
+    parser.add_argument("--model", type=str, choices=list(DiT_models), default="DiT-XL/2")
+    parser.add_argument("--image-size", type=int, choices=[256, 512], default=256)
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--epochs", type=int, default=1400)
+    parser.add_argument("--global-batch-size", type=int, default=256)
+    parser.add_argument("--global-seed", type=int, default=0)
+    parser.add_argument("--vae", type=str, choices=["ema", "mse"], default="ema")
+    parser.add_argument("--num-workers", type=int, default=4)
+    parser.add_argument("--log-every", type=int, default=100)
+    parser.add_argument("--ckpt-every", type=int, default=50_000)
+    # the JAX trainer's extensions
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--ema-decay", type=float, default=0.9999)
+    parser.add_argument("--tp", type=int, default=1, help="not ported yet")
+    parser.add_argument("--moe-aux-weight", type=float, default=1e-2,
+                        help="MoE load-balance loss weight (MoE is not ported yet)")
+    parser.add_argument("--moe-z-weight", type=float, default=1e-3,
+                        help="MoE router z-loss weight (MoE is not ported yet)")
+    parser.add_argument("--ep", type=int, default=1, help="not ported yet")
+    parser.add_argument("--fsdp", action="store_true", help="not ported yet")
+    parser.add_argument("--grad-accum", type=int, default=1)
+    parser.add_argument("--fp32", action="store_true", help="disable bf16 activations")
+    parser.add_argument("--no-remat", action="store_true",
+                        help="disable per-block gradient checkpointing")
+    parser.add_argument("--remat-policy", type=str, default="nothing",
+                        choices=["nothing", "attn", "attn_mlp"],
+                        help="what the backward keeps instead of recomputing "
+                             "(only 'nothing' is ported)")
+    parser.add_argument("--attn-backend", type=str, default="auto", choices=BACKENDS,
+                        help="auto: the CUDA kernels on the card; einsum: the plain version")
+    parser.add_argument("--scan-unroll", type=int, default=1,
+                        help="accepted for compatibility; no effect in the port")
+    parser.add_argument("--objective", type=str, default="eps", choices=["eps", "flow"],
+                        help="only 'eps' is ported")
+    parser.add_argument("--flow-path", type=str, default="linear", choices=["linear", "gvp"])
+    parser.add_argument("--synthetic-data", action="store_true")
+    parser.add_argument("--schedule-sampler", type=str, default="uniform",
+                        choices=["uniform", "loss-second-moment"],
+                        help="only 'uniform' is ported")
+    parser.add_argument("--mixed-precision", action="store_true",
+                        help="bf16 params + fp32 master weights")
+    parser.add_argument("--fused-optimizer", action="store_true",
+                        help="bf16 params, bf16 mu, fp32 nu/master/EMA updated by the "
+                             "fused AdamW + EMA kernel")
+    parser.add_argument("--nu-dtype", type=str, default="fp32", choices=["fp32", "bf16"],
+                        help="only fp32 is ported")
+    parser.add_argument("--factored-nu", action="store_true", help="not ported yet")
+    parser.add_argument("--max-steps", type=int, default=0)
+    parser.add_argument("--resume", action="store_true", help="not ported yet")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler chrome trace here")
+    parser.add_argument("--matmul-precision", type=str, default="default",
+                        choices=["default", "high", "highest"],
+                        help="fp32 matmul precision: 'high' allows TF32; 'default' "
+                             "leaves torch's setting")
+    parser.add_argument("--native-loader", action="store_true", help="not ported yet")
+    parser.add_argument("--export-pt", action="store_true",
+                        help="also save the EMA state dict alone at the end")
+    # the port's own
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return parser.parse_args(argv)

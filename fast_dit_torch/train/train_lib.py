@@ -1,0 +1,181 @@
+"""Training step: loss, gradients, AdamW and EMA (counterpart of
+`fast_dit_tpu/train/train_lib.py:42-287`).
+
+The step draws uniform timesteps, the noise and the label drops, computes
+the per-example learned-sigma hybrid loss (`training_losses`), takes its
+mean and backpropagates; with `grad_accum > 1` the batch is split into
+microbatches and their gradients averaged (`:244-265`). Then one of three
+optimizer routes updates the model's parameters in place:
+
+- default: `torch.optim.AdamW` over fp32 parameters (optax.adamw in JAX,
+  the same formula with weight decay 0), then `update_ema`;
+- `mixed_precision`: bf16 parameters with an fp32 master stepped by AdamW
+  (`mixed_precision.masterize`); the EMA tracks the master;
+- `fused_optimizer`: bf16 parameters, bf16 mu, fp32 nu, master and EMA,
+  all updated by the fused AdamW + EMA kernel (`ops/fused_update.py`).
+
+JAX threads an immutable state through a jitted step; here the state is
+updated in place and the step returns only its metrics (0-d tensors on the
+device, so nothing waits for the card). Random draws come from one
+`torch.Generator` on the model's device: t, then the noise, then the label
+drops, per microbatch; `draws=` injects them instead (for the tests).
+
+The flow objective, the loss-second-moment timestep sampler and the MoE
+auxiliary losses are not ported yet: the step refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..diffusion.gaussian import training_losses
+from ..ops.fused_update import (FusedAdamWEmaState, fused_adamw_ema_apply,
+                                fused_adamw_ema_init)
+from .mixed_precision import get_master_params, masterize
+
+__all__ = ["TrainState", "create_train_state", "update_ema", "make_train_step",
+           "ema_state_dict"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module                 # holds the parameters (fp32, or bf16)
+    ema: Dict[str, torch.Tensor]     # fp32, by parameter name
+    opt: Any                         # AdamW, MasterWeightsOptimizer or FusedAdamWEmaState
+
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+
+@torch.no_grad()
+def update_ema(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float = 0.9999):
+    """ema <- decay * ema + (1 - decay) * params, in place."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [p.float() for p in params], alpha=1.0 - decay)
+
+
+def _adamw(params, lr, weight_decay):
+    # optax.adamw's defaults; torch's own weight_decay default (0.01) is not
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
+                       weight_decay: Optional[float] = None, mixed_precision: bool = False,
+                       fused_optimizer: bool = False) -> TrainState:
+    """Optimizer state and a warm-started EMA (an exact copy) for `model`.
+
+    With `mixed_precision` or `fused_optimizer` the model's parameters are
+    cast to bf16 in place first, so the fp32 master starts from the bf16
+    values, as in JAX (`train_lib.py:81-117`). The AdamW routes take `lr`
+    (default 1e-4) and `weight_decay` (default 0) here and keep fp32
+    moments; the fused route (bf16 mu) takes them from `make_train_step`
+    and refuses them here, so that the two cannot disagree."""
+    if fused_optimizer and (lr is not None or weight_decay is not None):
+        raise ValueError("fused_optimizer=True takes lr and weight_decay from "
+                         "make_train_step(lr=..., weight_decay=...), not from here")
+    lr = 1e-4 if lr is None else lr
+    weight_decay = 0.0 if weight_decay is None else weight_decay
+    if fused_optimizer or mixed_precision:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    if fused_optimizer:
+        opt = fused_adamw_ema_init(params, mu_dtype=torch.bfloat16)
+    elif mixed_precision:
+        opt = masterize(params, lambda master: _adamw(master, lr, weight_decay))
+    else:
+        opt = _adamw(params, lr, weight_decay)
+    source = get_master_params(opt) or params
+    ema = {n: p.detach().float().clone() for n, p in zip(names, source)}
+    return TrainState(step=0, model=model, ema=ema, opt=opt)
+
+
+def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The EMA as a full state dict of the model (frozen buffers included),
+    loadable with `load_state_dict(strict=True)`."""
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    sd.update({k: v.detach().clone() for k, v in state.ema.items()})
+    return sd
+
+
+def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
+                    grad_accum: int = 1, log_grad_norm: bool = False, lr: float = 1e-4,
+                    weight_decay: float = 0.0, objective: str = "eps",
+                    sampler_state=None, generator: Optional[torch.Generator] = None):
+    """Build `train_step(state, batch, draws=None) -> metrics`.
+
+    batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels} on the
+    model's device. `draws`, if given, is a list of `grad_accum` dicts
+    {"t", "noise", and optionally "force_drop_ids"} used instead of the
+    generator. `lr` and `weight_decay` serve the fused route; the AdamW
+    routes take them from `create_train_state`.
+    """
+    if objective != "eps":
+        raise NotImplementedError(f"objective {objective!r} is not ported yet (eps only)")
+    if sampler_state is not None:
+        raise NotImplementedError("the loss-second-moment timestep sampler is not ported "
+                                  "yet (uniform t only)")
+    if getattr(model, "moe_experts", 0):
+        raise NotImplementedError("MoE models are not ported yet")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def micro_step(x, y, draw):
+        B = x.shape[0]
+        if draw is None:
+            t = torch.randint(0, schedule.num_timesteps, (B,), generator=generator,
+                              device=x.device)
+            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            force = None
+        else:
+            t, noise, force = draw["t"], draw["noise"], draw.get("force_drop_ids")
+
+        def model_fn(x_t, t_model):
+            return model(x_t, t_model, y, train=True, force_drop_ids=force,
+                         generator=generator)
+
+        terms = training_losses(schedule, model_fn, x, t, noise)
+        terms["loss"].mean().backward()
+        return {k: v.detach().mean() for k, v in terms.items()}
+
+    def train_step(state: TrainState, batch, draws=None) -> Dict[str, torch.Tensor]:
+        params = state.params()
+        for p in params:
+            p.grad = None
+        x, y = batch["x"], batch["y"]
+        B = x.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} is not divisible by grad_accum {grad_accum}")
+        mb = B // grad_accum
+        if draws is not None and len(draws) != grad_accum:
+            raise ValueError(f"draws holds {len(draws)} microbatches, expected {grad_accum}")
+        per_micro = [micro_step(x[i * mb:(i + 1) * mb], y[i * mb:(i + 1) * mb],
+                                None if draws is None else draws[i])
+                     for i in range(grad_accum)]
+        grads = [p.grad for p in params]
+        if grad_accum > 1:
+            torch._foreach_div_(grads, float(grad_accum))
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
+
+        ema = list(state.ema.values())
+        if isinstance(state.opt, FusedAdamWEmaState):
+            fused_adamw_ema_apply(state.opt, grads, [p.data for p in params], ema,
+                                  lr=lr, weight_decay=weight_decay, ema_decay=ema_decay)
+        else:
+            state.opt.step()
+            update_ema(ema, get_master_params(state.opt) or params, ema_decay)
+        if log_grad_norm:  # telemetry only: touches every gradient
+            norms = torch._foreach_norm([g.float() for g in grads])
+            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(norms))
+        state.step += 1
+        return metrics
+
+    return train_step

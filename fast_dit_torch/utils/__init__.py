@@ -1,1 +1,1 @@
-"""Device resolution and image helpers."""
+"""Device resolution, image helpers and the trainer's logger."""

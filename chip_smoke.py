@@ -5,8 +5,11 @@ their plain versions.
                                        # steps; training: DiT-XL/2, batch 32, 10 steps
     python3 chip_smoke.py --steps 250  # the reference sampling step count
     python3 chip_smoke.py --profile out/profile.txt  # also torch.profiler breakdowns of
-                                       # four sampling steps (table to that file) and two
-                                       # training steps (table to out/profile_train.txt)
+                                       # four sampling steps (table to that file), two
+                                       # training steps (out/profile_train.txt), two
+                                       # sequence-parallel sampling steps (out/profile_seq.txt)
+                                       # and one sequence-parallel gradient step
+                                       # (out/profile_seq_grad.txt)
 
 Phases, one JSON line each or more; any failure raises and the exit code is
 nonzero:
@@ -35,6 +38,17 @@ nonzero:
                   2 x depth x steps (forward, run again by remat) and depth x steps
                   (backward); then the same with --fused-optimizer, one fused-update
                   launch per parameter leaf per step.
+ 9. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
+                  bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
+                  shard, at a ragged Sq != Sk and at logits past the clamp, with its
+                  time, the plain version's, the flash attention call's (timed only)
+                  and the bound.
+10. ring_kernel_bwd: the hop backward the same way, with SDPA's backward timed beside.
+11. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
+                  on the card against the CPU; the full model's forward against its
+                  unsharded forward, fp32 and bf16; DDPM sampling over the sharded
+                  forward; the gradient of sum(out^2) against the unsharded model's;
+                  the hop kernels' launch counts checked exactly.
 Then the `kernels` line, the nvidia-smi line, and the final status line.
 """
 
@@ -58,6 +72,9 @@ from fast_dit_torch.ops.flash_attention import (  # noqa: E402
     _attention_qkv_bwd_plain, _attention_qkv_plain, _launch_bwd, _launch_fwd,
     flash_attention_qkv_flat)
 from fast_dit_torch.ops import fused_update as fu  # noqa: E402
+from fast_dit_torch.ops.ring_attention import (  # noqa: E402
+    _hop_backward_plain, _hop_forward_plain, _launch_hop_bwd, _launch_hop_fwd)
+from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward  # noqa: E402
 from fast_dit_torch import sample as cli  # noqa: E402
 from fast_dit_torch.train import cli as train_cli  # noqa: E402
 from fast_dit_torch.train import create_train_state, make_train_step  # noqa: E402
@@ -79,6 +96,17 @@ TRAIN_ARGS = ["--model", "DiT-XL/2", "--synthetic-data", "--global-batch-size", 
               "--global-seed", "0"]
 TRAIN_STEPS, FUSED_TRAIN_STEPS = 10, 3  # timed steps of the two training runs
 LR = 1e-4
+# the ring hop (B' = shards x batch, Sq, Sk, H, hd); errors relative to the
+# largest output, fp32 and bf16 (the plain version computes in fp32 too)
+RING_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RING_SHAPES = [(16, 256, 256, 16, 72),    # DiT-XL/2 512², 4 shards, batch 4 (sampling)
+               (8, 1024, 1024, 16, 72),   # 1024² over a 4-card ring: 4096 tokens
+               (2, 200, 136, 6, 64)]      # ragged, Sq != Sk
+RING_BWD_SHAPES = [(8, 256, 256, 16, 72)] + RING_SHAPES  # first: 512², batch 2 (gradient)
+RING_CLAMP_SHAPE = (2, 200, 136, 6, 64)  # integer q, k: some logits pass 50, exactly
+SEQ_N = 4                      # shards of the ring, the per-card shape of a 4-card ring
+SEQ_SAMPLE_BATCH, SEQ_GRAD_BATCH, SEQ_GRAD_STEPS = 4, 2, 3
+SEQ_SAMPLE_STEPS = 10           # DDPM steps of the sequence-parallel sampling path
 
 
 def emit(obj) -> None:
@@ -390,7 +418,7 @@ def profile_device(run, table_path, what):
     if not rows:
         raise RuntimeError("torch.profiler recorded no device time")
     busy_ms = sum(r[0] for r in rows) / 1e3
-    attn_ms = sum(r[0] for r in rows if "attention_" in r[1]) / 1e3
+    attn_ms = sum(r[0] for r in rows if "attention_" in r[1] or "ring_hop_" in r[1]) / 1e3
     os.makedirs(os.path.dirname(os.path.abspath(table_path)), exist_ok=True)
     with open(table_path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
@@ -476,7 +504,8 @@ def _train_run(flags, warmup, steps, profile_table=None):
                              f"with {flags}: {still[:5]}")
     del before
     depth = model.depth
-    want = {"attention_fwd": 2 * depth * steps, "attention_bwd": depth * steps,
+    want = {**{k: 0 for k in launches}, "attention_fwd": 2 * depth * steps,
+            "attention_bwd": depth * steps,
             "fused_adamw_ema": (len(list(model.parameters())) * steps
                                 if args.fused_optimizer else 0)}
     if launches != want:
@@ -513,12 +542,341 @@ def phase_train(profile_table):
     return main_launches, fused_launches
 
 
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _hop_inputs(B, Sq, Sk, H, hd, dtype, g, clamp=False):
+    """q, k, v in `dtype`; do, dl fp32. With `clamp`, q and k are integers in
+    [-8, 8]: about 2 % of the logits pass 50, and q k^T and u / sqrt(64) stay
+    exact in fp32 in any order (near 50, exp turns a rounding of s into |s|
+    times that relative error in p_u, which the check would measure)."""
+    D = H * hd
+    if clamp:
+        q = torch.randint(-8, 9, (B, Sq, D), generator=g, device="cuda").float()
+        k = torch.randint(-8, 9, (B, Sk, D), generator=g, device="cuda").float()
+    else:
+        q = torch.randn(B, Sq, D, generator=g, device="cuda")
+        k = torch.randn(B, Sk, D, generator=g, device="cuda")
+    v = torch.randn(B, Sk, D, generator=g, device="cuda")
+    do = torch.randn(B, Sq, D, generator=g, device="cuda")
+    dl = torch.randn(B, Sq, H, generator=g, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype), do, dl
+
+
+def _ring_cases(shapes):
+    return [(shape, False) for shape in shapes] + [(RING_CLAMP_SHAPE, True)]
+
+
+def phase_ring_kernel():
+    """Kernel 4 vs its plain version at every shape and dtype; returns the
+    sampling-shape bf16 row. The library yardstick is the flash attention
+    call that also returns the rows' LSE (the efficient one in fp32, which
+    flash does not take): it computes the normalised softmax, where the hop
+    returns unnormalised partials, and is timed only."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main = None
+    for (B, Sq, Sk, H, hd), clamp in _ring_cases(RING_SHAPES):
+        D = H * hd
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, _, _ = _hop_inputs(B, Sq, Sk, H, hd, dtype, g, clamp)
+            scale = hd ** -0.5
+            o, l = _launch_hop_fwd(q, k, v, scale, H)
+            torch.cuda.synchronize()
+            want_o, want_l = _hop_forward_plain(q, k, v, scale, H)
+            errs = {"o_u": _rel_err(o, want_o), "l": _rel_err(l, want_l)}
+            if not (torch.isfinite(o).all() and max(errs.values()) <= RING_RTOL[dtype]):
+                raise AssertionError(f"ring hop forward vs plain at {(B, Sq, Sk, H, hd)} "
+                                     f"{dtype} clamp={clamp}: {errs} > {RING_RTOL[dtype]}")
+            if clamp and not want_l.max().item() > math.exp(50.0):
+                raise AssertionError("the clamp-crossing inputs stayed below the clamp")
+            q4, k4, v4 = (t.view(B, t.shape[1], H, hd).transpose(1, 2) for t in (q, k, v))
+            if dtype == torch.bfloat16:
+                library = "aten._scaled_dot_product_flash_attention (normalised, with LSE)"
+                lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    q4, k4, v4, 0.0, False, False, scale=scale)
+            else:
+                library = "aten._scaled_dot_product_efficient_attention (normalised, with LSE)"
+                lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q4, k4, v4, None, True, 0.0, False, scale=scale)
+            # read q once and k, v once, write o_u and l (fp32) once
+            nbytes = (B * Sq * D + 2 * B * Sk * D) * q.element_size() + 4 * (B * Sq * D + B * Sq * H)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * B * Sq * Sk * D / PEAK_FLOPS[dtype] * 1e3
+            row = {"phase": "ring_kernel", "name": "ring_hop_fwd", "shape": [B, Sq, Sk, H, hd],
+                   "dtype": _dtype_name(dtype), "clamp_crossing": clamp, "max_rel_err": errs,
+                   "max_abs_err": max((o - want_o).abs().max().item(),
+                                      (l - want_l).abs().max().item()),
+                   "rtol": RING_RTOL[dtype],
+                   "kernel_ms": cuda_ms(lambda: _launch_hop_fwd(q, k, v, scale, H)),
+                   "plain_ms": cuda_ms(lambda: _hop_forward_plain(q, k, v, scale, H)),
+                   "library_ms": cuda_ms(lib), "library": library,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            emit(row)
+            if (B, Sq, Sk, H, hd) == RING_SHAPES[0] and dtype == torch.bfloat16 and not clamp:
+                main = row
+            del q, k, v, o, l, want_o, want_l, q4, k4, v4
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_ring_kernel_bwd():
+    """Kernel 5 vs its plain version at every shape and dtype; returns the
+    gradient-shape bf16 row. SDPA's backward alone is timed beside it."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    main = None
+    for (B, Sq, Sk, H, hd), clamp in _ring_cases(RING_BWD_SHAPES):
+        D = H * hd
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, dl = _hop_inputs(B, Sq, Sk, H, hd, dtype, g, clamp)
+            scale = hd ** -0.5
+            got = _launch_hop_bwd(q, k, v, do, dl, scale, H)
+            torch.cuda.synchronize()
+            want = _hop_backward_plain(q, k, v, do, dl, scale, H)
+            errs = {n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            if not (all(torch.isfinite(t).all() for t in got)
+                    and max(errs.values()) <= RING_RTOL[dtype]):
+                raise AssertionError(f"ring hop backward vs plain at {(B, Sq, Sk, H, hd)} "
+                                     f"{dtype} clamp={clamp}: {errs} > {RING_RTOL[dtype]}")
+            # SDPA's backward alone: the graph is kept, only the backward is timed
+            q4, k4, v4 = (t.view(B, t.shape[1], H, hd).transpose(1, 2).contiguous()
+                          .requires_grad_() for t in (q, k, v))
+            o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            do4 = do.to(dtype).view(B, Sq, H, hd).transpose(1, 2).contiguous()
+            # read q, k, v and write dq, dk, dv in the input dtype; read do, dl fp32
+            nbytes = (2 * (B * Sq * D + 2 * B * Sk * D) * q.element_size()
+                      + 4 * (B * Sq * D + B * Sq * H))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 10 * B * Sq * Sk * D / PEAK_FLOPS[dtype] * 1e3
+            row = {"phase": "ring_kernel_bwd", "name": "ring_hop_bwd",
+                   "shape": [B, Sq, Sk, H, hd], "dtype": _dtype_name(dtype),
+                   "clamp_crossing": clamp, "max_rel_err": errs,
+                   "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                      for a, b in zip(got, want)),
+                   "rtol": RING_RTOL[dtype],
+                   "kernel_ms": cuda_ms(lambda: _launch_hop_bwd(q, k, v, do, dl, scale, H)),
+                   "plain_ms": cuda_ms(lambda: _hop_backward_plain(q, k, v, do, dl, scale, H)),
+                   "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                       o4, (q4, k4, v4), do4, retain_graph=True)),
+                   "library": "SDPA backward alone (normalised softmax)",
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            emit(row)
+            if (B, Sq, Sk, H, hd) == RING_BWD_SHAPES[0] and dtype == torch.bfloat16:
+                main = row
+            del q, k, v, do, dl, got, want, q4, k4, v4, o4, do4
+    torch.cuda.empty_cache()
+    return main
+
+
+def _seq_small_check():
+    """A small bf16 model run sequence-parallel on the card (hop kernels) and
+    on the CPU (plain hops), same weights and inputs."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 4, 16, 16, generator=g)
+    t = torch.tensor([999, 500, 250, 3])
+    y = torch.tensor([1, 7, 1000, 3])
+    outs, launches = [], None
+    for device in ("cuda", "cpu"):
+        model = DiT_models["DiT-S/2"](input_size=16, depth=2, dtype=torch.bfloat16,
+                                      device=device, seed=0)
+        cli.perturb_(model)
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            outs.append(dit_sequence_parallel_forward(
+                model, x.to(device), t.to(device), y.to(device), LocalRing(SEQ_N)).cpu())
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = _build.launch_counts["ring_hop_fwd"]
+    err, peak = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
+    if not (launches == 2 * SEQ_N and err <= 2e-2 * peak):
+        raise AssertionError(f"small sequence-parallel model card vs CPU: err {err} > "
+                             f"2e-2 x {peak}, or {launches} hop launches != {2 * SEQ_N}")
+    return {"max_abs_err": err, "tol": 2e-2 * peak}
+
+
+def _seq_model(dtype):
+    model = DiT_models["DiT-XL/2"](input_size=64, dtype=dtype, device="cuda", seed=0)
+    cli.perturb_(model)
+    return model.eval()
+
+
+def _seq_inputs(batch):
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(batch, 4, 64, 64, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
+    y = torch.tensor(cli.CLASS_LABELS[:batch], device="cuda")
+    return x, t, y
+
+
+def phase_seq_parallel(steps, profile_table):
+    """Sequence-parallel DiT-XL/2 at 512² (64² latents, 1024 tokens) over
+    LocalRing(4): 4 shards of 256 tokens, stacked on the batch axis.
+
+    Launch counts, checked exactly: a bf16 forward launches `ring_hop_fwd`
+    depth x n times (one hop per ring step per block), and its backward
+    launches `ring_hop_bwd` depth x n times; the dense kernels are not
+    launched. So DDPM sampling of `steps` steps launches depth x n x steps
+    hop forwards, and `SEQ_GRAD_STEPS` forward + backward steps launch
+    depth x n x SEQ_GRAD_STEPS of each."""
+    ring = LocalRing(SEQ_N)
+    small = _seq_small_check()
+
+    # 1. the forward against the unsharded forward, fp32 (the streaming
+    # ring against kernel 1 in fp32) and bf16 (the hop kernels against it)
+    x, t, y = _seq_inputs(SEQ_SAMPLE_BATCH)
+    fwd = {}
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        t0 = time.perf_counter()
+        model = _seq_model(dtype)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            _build.reset_launch_counts()
+            got = dit_sequence_parallel_forward(model, x, t, y, ring)
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            want = model(x, t, y)
+        err, peak = (got - want).abs().max().item(), want.abs().max().item()
+        want_launches = model.depth * SEQ_N if dtype == torch.bfloat16 else 0
+        if not (tuple(got.shape) == (SEQ_SAMPLE_BATCH, 8, 64, 64) and torch.isfinite(got).all()
+                and err <= rtol * peak):
+            raise AssertionError(f"sequence-parallel XL/2 512² {dtype} vs unsharded: "
+                                 f"max abs err {err} > {rtol} x {peak}")
+        if (launches["ring_hop_fwd"] != want_launches or launches["attention_fwd"]
+                or launches["ring_hop_bwd"]):
+            raise AssertionError(f"sequence-parallel forward {dtype} launches {launches}, "
+                                 f"expected ring_hop_fwd = depth x n = {want_launches}")
+        fwd[_dtype_name(dtype)] = {"max_abs_err": err, "max_abs_out": peak, "tol": rtol * peak,
+                                   "launches": launches, "build_s": build_s}
+        del got, want
+        if dtype == torch.float32:
+            del model
+            torch.cuda.empty_cache()
+
+    # 2. the sampling path: DDPM over the sharded forward, batch 4, no CFG
+    diffusion = create_diffusion(str(steps), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    z = torch.randn(SEQ_SAMPLE_BATCH, 4, 64, 64, generator=g, device="cuda")
+    model_fn = lambda xs, ts: dit_sequence_parallel_forward(model, xs, ts, y, ring)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        latents = diffusion.p_sample_loop(model_fn, z.shape, noise=z, generator=g,
+                                          clip_denoised=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    sample_launches = dict(_build.launch_counts)
+    want = {k: 0 for k in sample_launches}
+    want["ring_hop_fwd"] = model.depth * SEQ_N * steps
+    if sample_launches != want:
+        raise AssertionError(f"sequence-parallel sampling launches {sample_launches}, "
+                             f"expected {want}")
+    if not (tuple(latents.shape) == (SEQ_SAMPLE_BATCH, 4, 64, 64)
+            and torch.isfinite(latents).all()):
+        raise AssertionError(f"bad sequence-parallel latents: {tuple(latents.shape)}")
+    sample = {"batch": SEQ_SAMPLE_BATCH, "sampler": "ddpm", "steps": steps, "cfg": None,
+              "loop_s": loop_s, "s_per_step": loop_s / steps,
+              "images_per_s": SEQ_SAMPLE_BATCH / loop_s, "launches": sample_launches,
+              "latents_mean_abs": latents.abs().mean().item(),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile_table:
+        diffusion2 = create_diffusion("2", device="cuda")
+        with torch.inference_mode():
+            sample["profile"] = profile_device(
+                lambda: diffusion2.p_sample_loop(model_fn, z.shape, noise=z, generator=g,
+                                                 clip_denoised=False),
+                profile_table, "2 sequence-parallel sampling steps")
+    del latents, diffusion
+
+    # 3. the gradient path: d sum(out^2) / d every parameter, batch 2, bf16
+    xb, tb, yb = x[:SEQ_GRAD_BATCH], t[:SEQ_GRAD_BATCH], y[:SEQ_GRAD_BATCH]
+    params = dict(model.named_parameters())
+
+    def grads(forward):
+        model.zero_grad(set_to_none=True)
+        (forward(xb, tb, yb) ** 2).sum().backward()
+        return {n: p.grad.detach().clone() for n, p in params.items()}
+
+    _build.reset_launch_counts()
+    g_sp = grads(lambda *a: dit_sequence_parallel_forward(model, *a, ring))
+    torch.cuda.synchronize()
+    one_step = dict(_build.launch_counts)
+    g_ref = grads(lambda *a: model(*a))
+    bad = []
+    worst = (0.0, None)
+    for n in params:
+        a, b = g_sp[n], g_ref[n]
+        peak = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if peak > 0:
+            worst = max(worst, (err / peak, n))
+        if (not torch.isfinite(a).all() or err > 5e-2 * peak
+                or (peak > 0 and not a.abs().max().item() > 0)):
+            bad.append((n, err, peak))
+    if bad:
+        raise AssertionError(f"sequence-parallel gradient vs unsharded, {len(bad)} leaves "
+                             f"off (name, max abs err, max |g|): {bad[:5]}")
+    del g_sp, g_ref
+    depth = model.depth
+    if one_step != {**{k: 0 for k in one_step}, "ring_hop_fwd": depth * SEQ_N,
+                    "ring_hop_bwd": depth * SEQ_N}:
+        raise AssertionError(f"sequence-parallel forward + backward launches {one_step}, "
+                             f"expected depth x n = {depth * SEQ_N} of each hop kernel")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SEQ_GRAD_STEPS):
+        model.zero_grad(set_to_none=True)
+        (dit_sequence_parallel_forward(model, xb, tb, yb, ring) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = dict(_build.launch_counts)
+    want = {**{k: 0 for k in grad_launches}, "ring_hop_fwd": depth * SEQ_N * SEQ_GRAD_STEPS,
+            "ring_hop_bwd": depth * SEQ_N * SEQ_GRAD_STEPS}
+    if grad_launches != want:
+        raise AssertionError(f"sequence-parallel gradient steps launch {grad_launches}, "
+                             f"expected {want}")
+    if profile_table:
+        root, ext = os.path.splitext(profile_table)
+
+        def grad_step():
+            model.zero_grad(set_to_none=True)
+            (dit_sequence_parallel_forward(model, xb, tb, yb, ring) ** 2).sum().backward()
+
+        grad_profile = profile_device(grad_step, f"{root}_grad{ext}",
+                                      "1 sequence-parallel forward + backward")
+    grad = {"batch": SEQ_GRAD_BATCH, "dtype": "bfloat16", "leaves": len(params),
+            "worst_leaf_rel_err": worst[0], "worst_leaf": worst[1], "tol_rel": 5e-2,
+            "steps": SEQ_GRAD_STEPS, "s_per_step": grad_s / SEQ_GRAD_STEPS,
+            "images_per_s": SEQ_GRAD_BATCH * SEQ_GRAD_STEPS / grad_s,
+            "launches": grad_launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile_table:
+        grad["profile"] = grad_profile
+    emit({"phase": "seq_parallel", "model": "DiT-XL/2", "image_size": 512, "tokens": 1024,
+          "ring": f"LocalRing({SEQ_N})", "shard_tokens": 1024 // SEQ_N, "small_check": small,
+          "forward": fwd, "sample": sample, "grad": grad})
+    model.zero_grad(set_to_none=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return sample_launches, grad_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one card.")
     ap.add_argument("--steps", type=int, default=50, help="DDPM steps of the sampling path")
     ap.add_argument("--profile", metavar="TABLE", default=None,
-                    help="profile four sampling steps and two training steps; write the "
-                         "kernel tables to TABLE and TABLE's name + _train")
+                    help="profile four sampling steps, two training steps, two "
+                         "sequence-parallel sampling steps and one sequence-parallel "
+                         "gradient step; write the kernel tables to TABLE and TABLE's "
+                         "name + _train, + _seq and + _seq_grad")
     a = ap.parse_args()
 
     smi = phase_device()
@@ -529,8 +887,17 @@ def main():
     phase_model()
     sample_launches = phase_sample(a.steps, a.profile)
     train_launches, fused_launches = phase_train(a.profile)
-    by_path = {k: {"sample": sample_launches.get(k, 0), "train": train_launches[k],
-                   "train_fused_optimizer": fused_launches[k]} for k in _build.launch_counts}
+    ring_fwd = phase_ring_kernel()
+    ring_bwd = phase_ring_kernel_bwd()
+    seq_table = None
+    if a.profile:
+        root, ext = os.path.splitext(a.profile)
+        seq_table = f"{root}_seq{ext}"
+    seq_sample_launches, seq_grad_launches = phase_seq_parallel(SEQ_SAMPLE_STEPS, seq_table)
+    by_path = {k: {"sample": sample_launches.get(k, 0), "train": train_launches.get(k, 0),
+                   "train_fused_optimizer": fused_launches.get(k, 0),
+                   "seq_sample": seq_sample_launches[k], "seq_grad": seq_grad_launches[k]}
+               for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):
             raise AssertionError(f"kernel {name} was launched no time on the main paths")
@@ -551,6 +918,10 @@ def main():
         entry("fused_adamw_ema", "fast_dit_torch/csrc/fused_update.cu",
               "fast_dit_tpu/ops/fused_update.py:138", fused,
               err=max(fused["max_abs_err"].values())),
+        entry("ring_hop_fwd", "fast_dit_torch/csrc/ring_hop_fwd.cu",
+              "fast_dit_tpu/ops/ring_attention.py:77", ring_fwd),
+        entry("ring_hop_bwd", "fast_dit_torch/csrc/ring_hop_bwd.cu",
+              "fast_dit_tpu/ops/ring_attention.py:111", ring_bwd),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

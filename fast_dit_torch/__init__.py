@@ -8,7 +8,10 @@ the loss functions, the train step with its three optimizer routes, the
 feature data, the trainer CLI (`python -m fast_dit_torch.train`) and two
 more hand-written CUDA kernels, the attention backward
 (`csrc/flash_attention_bwd.cu`) and the fused AdamW + EMA update
-(`csrc/fused_update.cu`).
+(`csrc/fused_update.cu`). Slice 3 covers sequence parallelism
+(`parallel/sequence.py`): ring attention over sharded tokens
+(`ops/ring_attention.py`) with the hand-written CUDA ring hop forward and
+backward (`csrc/ring_hop_fwd.cu`, `csrc/ring_hop_bwd.cu`).
 """
 
 __version__ = "0.1.0"

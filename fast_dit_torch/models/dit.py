@@ -116,23 +116,29 @@ class DiT(nn.Module):
         x = torch.einsum("nhwpqc->nchpwq", x)
         return x.reshape(x.shape[0], c, h * p, w * p)
 
-    def forward(self, x, t, y, *, train=False, force_drop_ids=None, generator=None):
+    def forward(self, x, t, y, *, train=False, force_drop_ids=None, generator=None, ring=None):
         """x: (B, C, H, W), t: (B,) int timesteps, y: (B,) int labels ->
         (B, out_channels, H, W) fp32. With `train`, labels are dropped to
         the null class with probability class_dropout_prob, drawn from
-        `generator`."""
+        `generator`. With `ring` (`parallel/sequence.py`), the blocks and the
+        final layer run on the token shards of the ring, with ring attention,
+        and the shards are gathered before `unpatchify`."""
         x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
         t_emb = self.t_embedder(t)
         y_emb = self.y_embedder(y, train, force_drop_ids, generator)
         c = t_emb + y_emb.to(t_emb.dtype)
+        if ring is not None:
+            x, c = ring.shard(x), ring.expand(c)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
                 # blocks draw no random numbers: no RNG state to keep
-                x = checkpoint(block, x, c, use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(block, x, c, ring, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = block(x, c)
+                x = block(x, c, ring)
         x = self.final_layer(x, c)
+        if ring is not None:
+            x = ring.unshard(x)
         return self.unpatchify(x).float()
 
     def forward_with_cfg(self, x, t, y, cfg_scale, guidance_channels: int = 3):

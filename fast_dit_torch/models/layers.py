@@ -12,6 +12,12 @@ stay fp32. `torch.autocast` is not used, since its casting rules differ.
 The qkv projection is a plain `Linear(D, 3D)` whose output rows are in
 (3, H, hd) order: it is already the packed (B, N, 3D) layout the attention
 kernel reads, so there is no permute and no split copy.
+
+Sequence parallelism (`DiT.forward(..., ring=)`, `parallel/sequence.py`)
+runs the same blocks on token shards: `Attention`, `DiTBlock.forward` and `full_step` take the `ring` the
+tokens are sharded around, and with one, attention takes the "ring" backend
+(q, k and v read in place from the packed qkv, q at column 0, k at D, v at
+2D). Every other op of a block is per token and runs on the shard as it is.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_qkv, resolve_backend
+from ..ops.attention import RING, attention_qkv, resolve_backend
 
 __all__ = [
     "modulate",
@@ -163,9 +169,12 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, ring=None):
+        """With `ring`, x is a token shard and attention runs around the ring
+        (the "ring" backend) in place of the model's dense backend."""
         qkv = self.qkv(x)  # (B, N, 3D): columns in (3, H, hd) order
-        out = attention_qkv(qkv, self.num_heads, backend=self.attn_backend)
+        backend = RING if ring is not None else self.attn_backend
+        out = attention_qkv(qkv, self.num_heads, backend=backend, ring=ring)
         return self.proj(out)
 
 
@@ -202,12 +211,12 @@ class DiTBlock(nn.Module):
     def _modulation(self, c):
         return self.adaLN_modulation(c).chunk(6, dim=-1)
 
-    def forward(self, x, c):
-        return self.full_step(x, c)[0]
+    def forward(self, x, c, ring=None):
+        return self.full_step(x, c, ring)[0]
 
-    def full_step(self, x, c):
+    def full_step(self, x, c, ring=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
-        attn_out = self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa))
+        attn_out = self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa), ring)
         x = x + gate_msa[:, None, :] * attn_out
         mlp_out = self.mlp(modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp))
         x = x + gate_mlp[:, None, :] * mlp_out

@@ -1,6 +1,9 @@
 """Kernels and their plain versions: the packed-qkv attention forward and
-backward (`flash_attention`), its dispatch (`attention`), the fused AdamW +
-EMA update (`fused_update`) and the nvcc/ctypes build (`_build`)."""
+backward (`flash_attention`), the ring-attention hop forward and backward
+(`ring_attention`), their dispatch (`attention`), the fused AdamW + EMA
+update (`fused_update`) and the nvcc/ctypes build (`_build`). The module
+`ring_attention` is imported by its path: its function of the same name
+would hide it as an attribute of this package."""
 
 from ._build import launch_counts, reset_launch_counts
 from .attention import attention_qkv

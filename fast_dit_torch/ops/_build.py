@@ -32,12 +32,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library name -> source file under csrc/
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "fused_update": "fused_update.cu"}
+           "fused_update": "fused_update.cu",
+           "ring_hop_fwd": "ring_hop_fwd.cu",
+           "ring_hop_bwd": "ring_hop_bwd.cu"}
 
 # kernel name -> launches since the last reset; each wrapper adds one where
-# it launches its kernel, and nowhere else (the attention backward counts
-# one per call, though it launches two passes)
-launch_counts = {"attention_fwd": 0, "attention_bwd": 0, "fused_adamw_ema": 0}
+# it launches its kernel, and nowhere else (the two backwards count one per
+# call, though each launches two passes)
+launch_counts = {"attention_fwd": 0, "attention_bwd": 0, "fused_adamw_ema": 0,
+                 "ring_hop_fwd": 0, "ring_hop_bwd": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -14,6 +14,10 @@ from fast_dit_torch.ops import _build
 from fast_dit_torch.ops import fused_update as fu
 from fast_dit_torch.ops.flash_attention import (_attention_qkv_bwd_plain, _attention_qkv_plain,
                                                 _launch_fwd, flash_attention_qkv_flat)
+from fast_dit_torch.ops.ring_attention import (_FWD_ARGS, _hop_backward_plain,
+                                               _hop_forward_plain, _launch_hop_bwd,
+                                               _launch_hop_fwd, ring_attention)
+from fast_dit_torch.parallel import LocalRing
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +96,112 @@ def test_fused_update_kernel_matches_update_math(cuda, p_dtype, mu_dtype):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype
             assert torch.equal(a, b)
+
+
+# the ring hop: (B, Sq, Sk, H, hd); fp32 and bf16 relative to max |output|:
+# sums in other orders (the bf16 plain version computes in fp32 too)
+HOP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+HOP_SHAPES = [
+    (16, 256, 256, 16, 72),  # DiT-XL/2 512², 4 shards of 256 tokens, batch 4
+    (2, 200, 136, 6, 64),    # ragged, Sq != Sk
+    (1, 7, 70, 2, 128),      # Sq below one tile, the largest head dim
+    (3, 65, 9, 4, 8),        # one query past a tile, the smallest head dim
+]
+
+
+def _hop_inputs(cuda, B, Sq, Sk, H, hd, dtype, clamp=False, seed=3):
+    """q, k, v, do, dl; with `clamp`, q and k are integers in [-8, 8], so
+    some logits pass 50 while q k^T stays exact in fp32 in any order."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if clamp:
+        q = torch.randint(-8, 9, (B, Sq, H * hd), generator=g, device=cuda).float()
+        k = torch.randint(-8, 9, (B, Sk, H * hd), generator=g, device=cuda).float()
+    else:
+        q = torch.randn(B, Sq, H * hd, generator=g, device=cuda)
+        k = torch.randn(B, Sk, H * hd, generator=g, device=cuda)
+    v = torch.randn(B, Sk, H * hd, generator=g, device=cuda)
+    do = torch.randn(B, Sq, H * hd, generator=g, device=cuda)
+    dl = torch.randn(B, Sq, H, generator=g, device=cuda)
+    return q.to(dtype), k.to(dtype), v.to(dtype), do, dl
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["normal", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,hd", HOP_SHAPES)
+def test_ring_hop_kernels_match_plain(cuda, B, Sq, Sk, H, hd, dtype, clamp):
+    q, k, v, do, dl = _hop_inputs(cuda, B, Sq, Sk, H, hd, dtype, clamp)
+    scale = hd ** -0.5
+    before = dict(_build.launch_counts)
+    o, l = _launch_hop_fwd(q, k, v, scale, H)
+    dq, dk, dv = _launch_hop_bwd(q, k, v, do, dl, scale, H)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ring_hop_fwd"] == before["ring_hop_fwd"] + 1
+    assert _build.launch_counts["ring_hop_bwd"] == before["ring_hop_bwd"] + 1
+    want_o, want_l = _hop_forward_plain(q, k, v, scale, H)
+    if clamp:
+        assert want_l.max().item() > 5e21  # exp(50): some logits pass the clamp
+    assert o.dtype == l.dtype == torch.float32 and l.shape == (B, Sq, H)
+    assert _rel(o, want_o) <= HOP_RTOL[dtype] and _rel(l, want_l) <= HOP_RTOL[dtype]
+    for got, want in zip((dq, dk, dv), _hop_backward_plain(q, k, v, do, dl, scale, H)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all() and _rel(got, want) <= HOP_RTOL[dtype]
+
+
+def test_ring_hop_kernels_read_packed_columns_in_place(cuda):
+    """q, k and v as column views of one packed (B, S, 3D) tensor (row stride
+    3D) give what contiguous copies give."""
+    B, S, H, hd = 4, 96, 4, 72
+    D = H * hd
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * D:(i + 1) * D] for i in range(3))
+    do = torch.randn(B, S, D, generator=g, device=cuda)
+    dl = torch.randn(B, S, H, generator=g, device=cuda)
+    views = _launch_hop_fwd(q, k, v, 0.1, H) + _launch_hop_bwd(q, k, v, do, dl, 0.1, H)
+    copies = [t.contiguous() for t in (q, k, v)]
+    dense = _launch_hop_fwd(*copies, 0.1, H) + _launch_hop_bwd(*copies, do, dl, 0.1, H)
+    for a, b in zip(views, dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bf16_ring_launches_the_hop_kernels(cuda, n):
+    """The bf16 ring on the card: n hop launches forward and n backward, and
+    the result matches the CPU ring (the plain hops)."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g).to(torch.bfloat16) for _ in range(3))
+    ring = LocalRing(n)
+    outs, grads = [], []
+    for device in ("cuda", "cpu"):
+        ts = [t.to(device).requires_grad_() for t in (q, k, v)]
+        before = dict(_build.launch_counts)
+        out = ring.unshard(ring_attention(*(ring.shard(t) for t in ts), ring))
+        out.float().square().sum().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launch_counts["ring_hop_fwd"] == before["ring_hop_fwd"] + n
+            assert _build.launch_counts["ring_hop_bwd"] == before["ring_hop_bwd"] + n
+        outs.append(out.float().cpu())
+        grads.append([t.grad.float().cpu() for t in ts])
+    assert _rel(outs[0], outs[1]) <= 2e-2
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 5e-2
+
+
+def test_a_refused_hop_launch_raises(cuda):
+    # hd 12 is not a multiple of 8: the wrapper's check is bypassed here, so
+    # the C entry point refuses it and the error must surface
+    q = torch.zeros(1, 4, 2 * 12, device=cuda)
+    fn = _build.function("ring_hop_fwd", "fdt_ring_hop_fwd", _FWD_ARGS)
+    with pytest.raises(RuntimeError, match="ring_hop_fwd launch: CUDA error"):
+        code = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                  96, 24, 96, 24, 96, 24, 1, 4, 4, 2, 12, 0.5, 0,
+                  torch.cuda.current_stream().cuda_stream)
+        _build.check_status("ring_hop_fwd", code, "ring_hop_fwd launch")
 
 
 def test_a_refused_launch_raises(cuda):

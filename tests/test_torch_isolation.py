@@ -40,7 +40,8 @@ def test_port_sources_exist():
                  "fast_dit_torch/ops/fused_update.py", "fast_dit_torch/train/__main__.py",
                  "fast_dit_torch/train/cli.py", "fast_dit_torch/train/train_lib.py",
                  "fast_dit_torch/train/mixed_precision.py", "fast_dit_torch/data/features.py",
-                 "fast_dit_torch/utils/logging.py"):
+                 "fast_dit_torch/utils/logging.py", "fast_dit_torch/ops/ring_attention.py",
+                 "fast_dit_torch/parallel/__init__.py", "fast_dit_torch/parallel/sequence.py"):
         assert must in rel
 
 

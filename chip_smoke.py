@@ -14,14 +14,17 @@ their plain versions.
 Phases, one JSON line each or more; any failure raises and the exit code is
 nonzero:
  1. device:       CUDA must be present; the card's name and power limit; TF32 off.
- 2. build:        nvcc builds every kernel of both paths from `fast_dit_torch/csrc`.
+ 2. build:        nvcc builds every kernel of both paths from `fast_dit_torch/csrc`;
+                  ptxas's spill bytes per library, and the registers and spills
+                  of the bf16 attention kernels at hd 72.
  3. kernel:       the attention forward against its plain version, fp32 and bf16,
-                  at the sampling and training shapes, at 1024 tokens and at a
-                  ragged S, with its
-                  time, the plain version's, SDPA's (timed only) and the bound.
- 4. kernel_bwd:   the attention backward against its plain version, fp32 and bf16,
-                  at the training shape, at 1024 tokens and at a ragged S, with
-                  SDPA's backward timed beside it.
+                  at the sampling and training shapes, at 1024 tokens, at a
+                  ragged S and at large logits (past 50), with its time, the
+                  plain version's, SDPA's (timed only), the bound, and the
+                  kernel's time over SDPA's (x_library) and over the bound (x_bound).
+ 4. kernel_bwd:   the attention backward the same way, at the training shape, at
+                  1024 tokens, at a ragged S and at large logits, with SDPA's
+                  backward timed beside it.
  5. fused_update: the fused AdamW + EMA kernel against `_update_math` over the
                   whole DiT-XL/2 parameter tree for 3 steps, with the fused
                   `torch.optim.AdamW` step timed beside it.
@@ -58,6 +61,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +96,12 @@ MAIN_SHAPE = (16, 256, 16, 72)  # DiT-XL/2 256², CFG batch of 8 labels
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_SHAPES = [(32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64)]
 TRAIN_SHAPE = (32, 256, 16, 72)  # DiT-XL/2 256², batch 32
+# the large-logit case, at MAIN_SHAPE (forward) and TRAIN_SHAPE (backward): q
+# and k scaled by 4, so the logits reach about 100, past the TPU's bf16 clamp
+# at 50, and the row max decides the rows; v scaled by 1/4, so the output
+# stays below 2 and the absolute limits stay the measure (see
+# tests/test_torch_cuda.py::_qkv)
+LARGE_QK, LARGE_V = 4.0, 0.25
 TRAIN_ARGS = ["--model", "DiT-XL/2", "--synthetic-data", "--global-batch-size", "32",
               "--global-seed", "0"]
 TRAIN_STEPS, FUSED_TRAIN_STEPS = 10, 3  # timed steps of the two training runs
@@ -152,55 +162,112 @@ def phase_device():
     return smi
 
 
+def ptxas_report(log):
+    """Per kernel of one library's `ptxas -v` log: registers and spill bytes;
+    and the library's total spill bytes (stores + loads)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            kernels[name]["spill_stores"] = int(m.group(1))
+            kernels[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    spill = sum(k["spill_stores"] + k["spill_loads"] for k in kernels.values())
+    return kernels, spill
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {k: os.path.basename(v) for k, v in libs.items()}})
+    seconds = time.perf_counter() - t0
+    spill, bf16_hd72 = {}, {}
+    for lib, path in libs.items():
+        kernels, spill[lib] = ptxas_report(path.with_suffix(".log").read_text())
+        # the attention kernels' bf16 bodies at the main path's head dim
+        bf16_hd72.update({k: v for k, v in kernels.items() if "bf16" in k and "Li72E" in k})
+    if not bf16_hd72:
+        raise AssertionError("ptxas reported no bf16 attention kernel at hd 72")
+    emit({"phase": "build", "seconds": seconds,
+          "libraries": {k: os.path.basename(v) for k, v in libs.items()},
+          "spill_bytes": spill, "bf16_hd72": bf16_hd72})
+
+
+def attention_qkv(B, S, H, hd, dtype, g, large):
+    """A random packed qkv in `dtype`, and its largest logit q.k * scale;
+    `large` scales q and k by LARGE_QK and v by LARGE_V."""
+    D = H * hd
+    qkv = torch.randn(B, S, 3 * D, generator=g, device="cuda")
+    if large:
+        qkv[..., :2 * D] *= LARGE_QK
+        qkv[..., 2 * D:] *= LARGE_V
+    qkv = qkv.to(dtype)
+    q, k = (qkv[..., i * D:(i + 1) * D].float().view(B, S, H, hd) for i in range(2))
+    max_logit = max(torch.einsum("qhd,khd->hqk", q[b], k[b]).max().item()
+                    for b in range(B)) * hd ** -0.5
+    if large and not max_logit > 50:
+        raise AssertionError(f"the large-logit inputs stayed below 50: {max_logit}")
+    return qkv, max_logit
+
+
+def _ratios(row):
+    row["x_library"] = row["kernel_ms"] / row["library_ms"]
+    row["x_bound"] = row["kernel_ms"] / row["bound_ms"]
+    return row
 
 
 def phase_kernel():
-    """Kernel vs twin at every shape and dtype; returns the main-shape bf16 row."""
+    """Kernel vs twin at every shape and dtype, and at large logits; returns
+    the main-shape bf16 row."""
     g = torch.Generator(device="cuda").manual_seed(0)
     main = None
-    for B, S, H, hd in KERNEL_SHAPES:
+    for (B, S, H, hd), large in ([(shape, False) for shape in KERNEL_SHAPES]
+                                 + [(MAIN_SHAPE, True)]):
         D = H * hd
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(B, S, 3 * D, generator=g, device="cuda").to(dtype)
+            qkv, max_logit = attention_qkv(B, S, H, hd, dtype, g, large)
             scale = hd ** -0.5
             out = flash_attention_qkv_flat(qkv, H)
             torch.cuda.synchronize()
             ref = _attention_qkv_plain(qkv, H, scale)
             err = (out.float() - ref.float()).abs().max().item()
-            if not err <= TOL[dtype]:
-                raise AssertionError(f"attention kernel vs twin at {(B, S, H, hd)} {dtype}: "
-                                     f"max abs err {err} > {TOL[dtype]}")
+            if not (torch.isfinite(out).all() and err <= TOL[dtype]):
+                raise AssertionError(f"attention kernel vs twin at {(B, S, H, hd)} {dtype} "
+                                     f"large={large}: max abs err {err} > {TOL[dtype]}")
             q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
                        for i in range(3))
             sdpa = torch.nn.functional.scaled_dot_product_attention
             bound, bound_by = attention_bound_ms(B, S, H, hd, dtype)
             row = {"phase": "kernel", "name": "attention_fwd", "shape": [B, S, H, hd],
-                   "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-                   "tol": TOL[dtype],
+                   "dtype": str(dtype).replace("torch.", ""), "large_logits": large,
+                   "max_logit": max_logit, "max_abs_err": err, "tol": TOL[dtype],
                    "kernel_ms": cuda_ms(lambda: flash_attention_qkv_flat(qkv, H)),
                    "plain_ms": cuda_ms(lambda: _attention_qkv_plain(qkv, H, scale)),
                    "library_ms": cuda_ms(lambda: sdpa(q, k, v, scale=scale)),
                    "bound_ms": bound, "bound_us": bound * 1e3, "bound_by": bound_by}
-            emit(row)
-            if (B, S, H, hd) == MAIN_SHAPE and dtype == torch.bfloat16:
+            emit(_ratios(row))
+            if (B, S, H, hd) == MAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
+            del qkv, out, ref
     return main
 
 
 def phase_kernel_bwd():
-    """Backward kernel vs plain at every shape and dtype; returns the
-    training-shape bf16 row."""
+    """Backward kernel vs plain at every shape and dtype, and at large
+    logits; returns the training-shape bf16 row."""
     g = torch.Generator(device="cuda").manual_seed(2)
     main = None
-    for B, S, H, hd in BWD_SHAPES:
+    for (B, S, H, hd), large in ([(shape, False) for shape in BWD_SHAPES]
+                                 + [(TRAIN_SHAPE, True)]):
         D = H * hd
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(B, S, 3 * D, generator=g, device="cuda").to(dtype)
+            qkv, max_logit = attention_qkv(B, S, H, hd, dtype, g, large)
             dout = torch.randn(B, S, D, generator=g, device="cuda").to(dtype)
             scale = hd ** -0.5
             out, lse = _launch_fwd(qkv, H, hd, scale, with_lse=True)
@@ -210,8 +277,9 @@ def phase_kernel_bwd():
             peak = ref.abs().max().item()
             err = (dqkv.float() - ref).abs().max().item()
             if not (torch.isfinite(dqkv).all() and err <= BWD_RTOL[dtype] * peak):
-                raise AssertionError(f"attention backward vs plain at {(B, S, H, hd)} {dtype}: "
-                                     f"max abs err {err} > {BWD_RTOL[dtype]} x {peak}")
+                raise AssertionError(f"attention backward vs plain at {(B, S, H, hd)} {dtype} "
+                                     f"large={large}: max abs err {err} > "
+                                     f"{BWD_RTOL[dtype]} x {peak}")
             # SDPA's backward alone: the graph is kept, only the backward is timed
             q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
                        .contiguous().requires_grad_() for i in range(3))
@@ -221,7 +289,8 @@ def phase_kernel_bwd():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 10 * B * S * S * D / PEAK_FLOPS[dtype] * 1e3
             row = {"phase": "kernel_bwd", "name": "attention_bwd", "shape": [B, S, H, hd],
-                   "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                   "dtype": str(dtype).replace("torch.", ""), "large_logits": large,
+                   "max_logit": max_logit, "max_abs_err": err,
                    "max_abs_dqkv": peak, "tol": BWD_RTOL[dtype] * peak,
                    "kernel_ms": cuda_ms(lambda: _launch_bwd(qkv, out, dout, lse, H, hd, scale)),
                    "plain_ms": cuda_ms(lambda: _attention_qkv_bwd_plain(qkv, dout, H, scale)),
@@ -229,8 +298,8 @@ def phase_kernel_bwd():
                        o, (q, k, v), do_l, retain_graph=True)),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            emit(row)
-            if (B, S, H, hd) == TRAIN_SHAPE and dtype == torch.bfloat16:
+            emit(_ratios(row))
+            if (B, S, H, hd) == TRAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
             del qkv, dout, out, lse, dqkv, ref, q, k, v, o, do_l
     torch.cuda.empty_cache()

@@ -11,31 +11,53 @@
 //     ds = p * (dp - delta) * scale,  dq = ds k,  dk = ds^T q
 // reading the packed (B, S, 3D) qkv in place (q at column h*hd, k at D + h*hd,
 // v at 2D + h*hd, row stride 3D) and writing dq, dk and dv straight into the
-// same columns of one packed (B, S, 3D) dqkv, in the input dtype. Every
-// product and sum is fp32 for both input dtypes.
+// same columns of one packed (B, S, 3D) dqkv, in the input dtype.
 //
 // What bounds it on the H100. At the DiT-XL/2 training shape (B=32, S=256,
 // H=16, hd=72, D=1152) one call does the five products, 10*B*S^2*D = 24.2
 // GFLOP, and must move 8*B*S*D elements (read qkv, O and dO, write dqkv):
 // 151 MB in bf16. Against the data sheet (3.35 TB/s, 989 TFLOP/s bf16 tensor
 // cores, 67 TFLOP/s fp32 without them) the bf16 call is bound by bytes at
-// ~45 us (its products alone take ~24 us) and the fp32 call by operations at
-// ~361 us. This kernel computes on the fp32
-// CUDA cores and recomputes the scores and dp in both of its passes (14
-// products' worth of work, not 10), so it sits far above its bound in bf16:
-// tensor cores (mma.sync, then wgmma with TMA) are later work.
+// 45 us (its products alone take 24 us) and the fp32 call by operations at
+// 361 us.
 //
-// Design: two passes, no atomics, so the result is deterministic.
-//  - The TPU kernel walks the query chunks of one batch row in order and
-//    carries dk/dv in VMEM scratch. Hopper blocks run in no order, so the
-//    sums are split by what they reduce over:
-//    (1) the dq pass, one block per (64-query tile, head, batch row), loops
-//        over the key tiles; it first forms delta = rowsum(dO * o) for its
-//        rows from the saved forward output and writes it out;
-//    (2) the dk/dv pass, one block per (64-key tile, head, batch row),
-//        loops over the query tiles and reads the deltas of pass (1).
-//    Both passes are one templated body: a fixed 64-row tile (A, C) held in
-//    shared memory and 64-row tiles (B, E) of the other side streamed in turn:
+// Two passes, no atomics, so the result is deterministic. The TPU kernel
+// walks the query chunks of one batch row in order and carries dk/dv in VMEM
+// scratch; Hopper blocks run in no order, so the sums are split by what they
+// reduce over:
+//  (1) the dq pass, one block per (64-query tile, head, batch row), loops
+//      over the key tiles; it first forms delta = rowsum(dO * o) in fp32 for
+//      its rows from the saved forward output and writes it out;
+//  (2) the dk/dv pass, one block per (64-key tile, head, batch row), loops
+//      over the query tiles and reads the deltas of pass (1).
+// Both recompute the scores and dp (14 products' worth of work, not 10).
+//
+// bf16 (dtype 1, every call of the main path): tensor cores, with the tile
+// code of `attn_mma_bf16.cuh` (bf16 tiles in shared memory, hd padded with
+// zero columns to a multiple of 16 in shared memory only, a bank-conflict-
+// free pitch, 16-byte cp.async copies with rows >= S zero-filled, ldmatrix,
+// mma.sync m16n8k16 with fp32 accumulation). 128 threads; each warp owns 16
+// rows of the fixed tile, whose accumulators (hd/8 n8 tiles each) stay in
+// registers; the streamed tiles go through a two-stage ring, so the next
+// tile loads while the current one multiplies.
+//  - dq pass: S = Q K^T and dP = dO V^T (16 x 64 per warp), p = exp2(s *
+//    scale*log2(e) - lse2), ds = p (dp - delta) scale, rounded to bf16 into
+//    the A fragment of dQ += dS K (K through ldmatrix.trans).
+//  - dk/dv pass: the transposed tiles S^T = K Q^T and dP^T = V dO^T, so that
+//    P^T and dS^T are already, in registers, the A operands of dV += P^T dO
+//    and dK += dS^T Q (dO and Q through ldmatrix.trans). The streamed rows'
+//    LSE and delta go through shared memory beside their tiles.
+//  - p and ds are rounded to bf16 before their products, as the TPU
+//    kernel's exact path does (`:217,221`); every sum is fp32.
+//  Why mma.sync and not wgmma + TMA: the bound is bytes (45 us against 24 us
+//  of products at B=32), mma.sync's rate puts the products at a few us, and
+//  a 144-byte head row does not fit the 128-byte swizzle atom of a single
+//  TMA box and wgmma's shared-memory descriptors.
+//
+// fp32 (dtype 0): the fp32-core body below (`attention_bwd_kernel<float>`),
+// which holds the 1e-5 limit against the plain version. Both passes are one
+// templated body: a fixed 64-row tile (A, C) held in shared memory and
+// 64-row tiles (B, E) of the other side streamed in turn:
 //        dq pass:   A = q, C = dO, B = k, E = v;  x = A B^T = s, y = C E^T = dp
 //        dk/dv:     A = k, C = v, B = q, E = dO;  x = s^T,      y = dp^T
 //    and in both, ds = p * (y - delta) * scale and acc_B += ds B; the dk/dv
@@ -46,15 +68,17 @@
 //  - Tiles sit in shared memory as fp32, transposed ([d][row]) with a row
 //    pitch of 68 floats: the score loop reads float4s along rows, and the
 //    accumulation loop reads a column d = cg + 8j from 8 banks apart.
-//  - The ragged S edge: rows >= S load as zeros, p is forced to 0 for
-//    streamed rows >= S (their LSE is not defined), and rows >= S of the
-//    fixed tile are never stored.
 //
-// Documented deviation from the TPU kernel: its exact path casts p and ds to
-// the input dtype before the products (`:217,221`); this kernel keeps them in
-// fp32. Its bf16 path clamps the logits at 50 and folds 1/rowsum into dO and
-// q (`:226-242`), a VPU workaround that is not ported: this kernel is the
-// exact gradient of the exact softmax that `flash_attention_fwd.cu` computes.
+// The ragged S edge, in both bodies: rows >= S load as zeros, p is forced to
+// 0 for streamed rows >= S (their LSE is not defined), and rows >= S of the
+// fixed tile are never stored.
+//
+// Documented deviation from the TPU kernel: the fp32 body keeps p and ds in
+// fp32 (the TPU's exact path casts them to the input dtype, a no-op in
+// fp32). The TPU's bf16 path clamps the logits at 50 and folds 1/rowsum into
+// dO and q (`:226-242`), a VPU workaround that is not ported: both bodies
+// are the exact gradient of the exact softmax that `flash_attention_fwd.cu`
+// computes.
 //
 // Interface: a plain C function, bound from Python with ctypes. It launches
 // both passes on the given stream, allocates nothing (delta is scratch the
@@ -65,6 +89,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_mma_bf16.cuh"
+
 namespace {
 
 constexpr int BR = 64;         // rows per tile, fixed and streamed
@@ -72,14 +98,11 @@ constexpr int PITCH = BR + 4;  // shared-memory row pitch of a transposed tile
 constexpr int THREADS = 256;
 constexpr int CG = 8;          // column groups of the (64, hd) accumulators
 
+// the fp32-core body below is instantiated for float only
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
 
 // Copy rows [row0, row0 + 64) of one head's HD columns, starting at column
 // `col` of a row-major tensor with `row_stride` elements per row, into
@@ -306,13 +329,269 @@ cudaError_t launch(const void* qkv, const void* out, const void* dout, const flo
     return launch_pass<T, HD, true>(qkv, out, dout, lse, delta, dqkv, B, S, H, scale, stream);
 }
 
-template <typename T>
+// ---- bf16: tensor cores ----------------------------------------------------
+
+using attn_mma::bf16;
+
+// The dq pass: one block per (64-query tile, head, batch row).
+template <int HD>
+__global__ void __launch_bounds__(attn_mma::THREADS)
+attention_bwd_dq_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ delta, bf16* __restrict__ dqkv, int S, int H,
+                             float scale, float scale_log2) {
+    using namespace attn_mma;
+    constexpr int T = tile_elems(HD);
+    constexpr int P = pitch(HD);
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    bf16* qs = reinterpret_cast<bf16*>(smem_bf16);  // Q tile, then the dq tile
+    bf16* dos = qs + T;                               // dO tile
+    bf16* kv = dos + T;                               // two stages of (K tile, V tile)
+    float* lse_s = reinterpret_cast<float*>(kv + 4 * T);
+    float* delta_s = lse_s + ROWS;
+
+    const int q0 = blockIdx.x * ROWS;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int D = H * HD;
+    const int64_t rs = 3 * (int64_t)D;
+    const bf16* base = qkv + (int64_t)b * S * rs;
+    const int64_t o_base = (int64_t)b * S * D;
+    const int64_t stat_base = ((int64_t)b * H + h) * S;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+
+    zero_padding<HD>(qs, 6);
+    load_tile_async<HD>(qs, base, q0, S, rs, h * HD);
+    load_tile_async<HD>(dos, dout + o_base, q0, S, D, h * HD);
+    load_tile_async<HD>(kv, base, 0, S, rs, D + h * HD);
+    load_tile_async<HD>(kv + T, base, 0, S, rs, 2 * D + h * HD);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // delta = rowsum(dO * o) in fp32 for this tile's rows, two threads per row
+    {
+        const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+        const int row = q0 + r;
+        float sum = 0.f;
+        if (row < S) {
+            const bf16* o_row = out + o_base + (int64_t)row * D + h * HD;
+            for (int ch = half; ch < HD / 8; ch += 2) {
+                const uint4 ov = *reinterpret_cast<const uint4*>(o_row + ch * 8);
+                const uint4 dv = *reinterpret_cast<const uint4*>(dos + r * P + ch * 8);
+                const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+                const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+                    sum = fmaf(of.x, df.x, sum);
+                    sum = fmaf(of.y, df.y, sum);
+                }
+            }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        if (half == 0) {
+            delta_s[r] = sum;
+            lse_s[r] = row < S ? lse[stat_base + row] : 0.f;
+            if (row < S) delta[stat_base + row] = sum;
+        }
+    }
+    __syncthreads();
+    const int r0 = warp * 16 + g;
+    const float lse0 = lse_s[r0], lse1 = lse_s[r0 + 8];
+    const float dl0 = delta_s[r0], dl1 = delta_s[r0 + 8];
+
+    float dq[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+    const int ntiles = (S + ROWS - 1) / ROWS;
+    for (int it = 0; it < ntiles; ++it) {
+        const bf16* kt = kv + (it % 2) * 2 * T;
+        const bf16* vt = kt + T;
+        if (it + 1 < ntiles) {
+            bf16* nk = kv + ((it + 1) % 2) * 2 * T;
+            load_tile_async<HD>(nk, base, (it + 1) * ROWS, S, rs, D + h * HD);
+            load_tile_async<HD>(nk + T, base, (it + 1) * ROWS, S, rs, 2 * D + h * HD);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        float s[8][4], dp[8][4];
+        mma_abt<HD>(s, qs + warp * 16 * P, kt);
+        mma_abt<HD>(dp, dos + warp * 16 * P, vt);
+        const int k0 = it * ROWS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const bool valid = k0 + 8 * j + 2 * t + e < S;
+                const float p0 = valid ? exp2f(s[j][e] * scale_log2 - lse0) : 0.f;
+                const float p1 = valid ? exp2f(s[j][2 + e] * scale_log2 - lse1) : 0.f;
+                dp[j][e] = p0 * (dp[j][e] - dl0) * scale;
+                dp[j][2 + e] = p1 * (dp[j][2 + e] - dl1) * scale;
+            }
+        }
+        mma_ab<HD>(dq, dp, kt);  // dq += ds k, ds rounded to bf16
+        __syncthreads();         // this stage is refilled next
+    }
+
+    // the warp's own rows of the Q tile were read by this warp only
+    acc_to_tile<HD>(dq, qs, warp * 16, 1.f, 1.f);
+    __syncthreads();
+    store_tile<HD>(qs, dqkv + (int64_t)b * S * rs, q0, S, rs, h * HD);
+}
+
+// The dk/dv pass: one block per (64-key tile, head, batch row).
+template <int HD>
+__global__ void __launch_bounds__(attn_mma::THREADS)
+attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dqkv, int S, int H, float scale,
+                              float scale_log2) {
+    using namespace attn_mma;
+    constexpr int T = tile_elems(HD);
+    constexpr int P = pitch(HD);
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    bf16* ks = reinterpret_cast<bf16*>(smem_bf16);  // K tile, then the dk tile
+    bf16* vs = ks + T;                                // V tile, then the dv tile
+    bf16* qd = vs + T;                                // two stages of (Q tile, dO tile)
+    float* stats = reinterpret_cast<float*>(qd + 4 * T);  // two stages of (lse, delta)
+
+    const int k0 = blockIdx.x * ROWS;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int D = H * HD;
+    const int64_t rs = 3 * (int64_t)D;
+    const bf16* base = qkv + (int64_t)b * S * rs;
+    const bf16* do_base = dout + (int64_t)b * S * D;
+    const int64_t stat_base = ((int64_t)b * H + h) * S;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+
+    // the streamed query rows' LSE and delta, 0 past S (their p is forced to 0)
+    auto load_stats = [&](float* dst, int row0) {
+        const int i = threadIdx.x % ROWS, row = row0 + i;
+        const float* src = threadIdx.x < ROWS ? lse : delta;
+        dst[threadIdx.x] = row < S ? src[stat_base + row] : 0.f;
+    };
+
+    zero_padding<HD>(ks, 6);
+    load_tile_async<HD>(ks, base, k0, S, rs, D + h * HD);
+    load_tile_async<HD>(vs, base, k0, S, rs, 2 * D + h * HD);
+    load_tile_async<HD>(qd, base, 0, S, rs, h * HD);
+    load_tile_async<HD>(qd + T, do_base, 0, S, D, h * HD);
+    cp_async_commit();
+    load_stats(stats, 0);
+
+    float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+        dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+
+    const int ntiles = (S + ROWS - 1) / ROWS;
+    for (int it = 0; it < ntiles; ++it) {
+        const bf16* qt = qd + (it % 2) * 2 * T;
+        const bf16* dot = qt + T;
+        const float* lse_t = stats + (it % 2) * 2 * ROWS;
+        const float* delta_t = lse_t + ROWS;
+        if (it + 1 < ntiles) {
+            bf16* nq = qd + ((it + 1) % 2) * 2 * T;
+            load_tile_async<HD>(nq, base, (it + 1) * ROWS, S, rs, h * HD);
+            load_tile_async<HD>(nq + T, do_base, (it + 1) * ROWS, S, D, h * HD);
+            cp_async_commit();
+            load_stats(stats + ((it + 1) % 2) * 2 * ROWS, (it + 1) * ROWS);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        // p^T (16 keys x 64 queries per warp) from S^T = K Q^T
+        float p[8][4];
+        mma_abt<HD>(p, ks + warp * 16 * P, qt);
+        const int q0 = it * ROWS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int qi = 8 * j + 2 * t + e;
+                const bool valid = q0 + qi < S;
+                const float l = lse_t[qi];
+                p[j][e] = valid ? exp2f(p[j][e] * scale_log2 - l) : 0.f;
+                p[j][2 + e] = valid ? exp2f(p[j][2 + e] * scale_log2 - l) : 0.f;
+            }
+        }
+        mma_ab<HD>(dv, p, dot);  // dv += p^T dO, p rounded to bf16
+
+        // ds^T from dP^T = V dO^T
+        float ds[8][4];
+        mma_abt<HD>(ds, vs + warp * 16 * P, dot);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float dl = delta_t[8 * j + 2 * t + e];
+                ds[j][e] = p[j][e] * (ds[j][e] - dl) * scale;
+                ds[j][2 + e] = p[j][2 + e] * (ds[j][2 + e] - dl) * scale;
+            }
+        }
+        mma_ab<HD>(dk, ds, qt);  // dk += ds^T q, ds rounded to bf16
+        __syncthreads();         // this stage is refilled next
+    }
+
+    // the warp's own rows of the K and V tiles were read by this warp only
+    acc_to_tile<HD>(dk, ks, warp * 16, 1.f, 1.f);
+    acc_to_tile<HD>(dv, vs, warp * 16, 1.f, 1.f);
+    __syncthreads();
+    bf16* dst = dqkv + (int64_t)b * S * rs;
+    store_tile<HD>(ks, dst, k0, S, rs, D + h * HD);
+    store_tile<HD>(vs, dst, k0, S, rs, 2 * D + h * HD);
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* qkv, const void* out, const void* dout, const float* lse,
+                        float* delta, void* dqkv, int B, int S, int H, float scale,
+                        cudaStream_t stream) {
+    // each pass: two fixed tiles, two stages of two streamed tiles, 128 floats of stats
+    constexpr size_t smem = 6 * (size_t)attn_mma::tile_elems(HD) * sizeof(bf16) +
+                            2 * attn_mma::ROWS * 2 * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attention_bwd_dkv_bf16_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + attn_mma::ROWS - 1) / attn_mma::ROWS, H, B);
+    const float scale_log2 = scale * 1.4426950408889634f;
+    const bf16* x = static_cast<const bf16*>(qkv);
+    const bf16* d = static_cast<const bf16*>(dout);
+    bf16* dx = static_cast<bf16*>(dqkv);
+    // the dq pass writes the deltas the dk/dv pass reads: same stream, in order
+    attention_bwd_dq_bf16_kernel<HD><<<grid, attn_mma::THREADS, smem, stream>>>(
+        x, static_cast<const bf16*>(out), d, lse, delta, dx, S, H, scale, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attention_bwd_dkv_bf16_kernel<HD><<<grid, attn_mma::THREADS, smem, stream>>>(
+        x, d, lse, delta, dx, S, H, scale, scale_log2);
+    return cudaGetLastError();
+}
+
+// dtype 0: the fp32-core body; dtype 1: the tensor-core bodies
 cudaError_t dispatch_hd(const void* qkv, const void* out, const void* dout, const float* lse,
                         float* delta, void* dqkv, int B, int S, int H, int hd, float scale,
-                        cudaStream_t stream) {
+                        int dtype, cudaStream_t stream) {
     switch (hd) {
-#define FDT_HD_CASE(N) \
-    case N: return launch<T, N>(qkv, out, dout, lse, delta, dqkv, B, S, H, scale, stream);
+#define FDT_HD_CASE(N)                                                                   \
+    case N:                                                                              \
+        return dtype == 0                                                                \
+                   ? launch<float, N>(qkv, out, dout, lse, delta, dqkv, B, S, H, scale, stream) \
+                   : launch_bf16<N>(qkv, out, dout, lse, delta, dqkv, B, S, H, scale, stream);
         FDT_HD_CASE(8) FDT_HD_CASE(16) FDT_HD_CASE(24) FDT_HD_CASE(32)
         FDT_HD_CASE(40) FDT_HD_CASE(48) FDT_HD_CASE(56) FDT_HD_CASE(64)
         FDT_HD_CASE(72) FDT_HD_CASE(80) FDT_HD_CASE(88) FDT_HD_CASE(96)
@@ -338,12 +617,8 @@ int fdt_attention_bwd(const void* qkv, const void* out, const void* dout, const 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* l = static_cast<const float*>(lse);
     float* dl = static_cast<float*>(delta);
-    if (dtype == 0)
-        return (int)dispatch_hd<float>(qkv, out, dout, l, dl, dqkv, B, S, H, hd, scale, st);
-    if (dtype == 1)
-        return (int)dispatch_hd<__nv_bfloat16>(qkv, out, dout, l, dl, dqkv, B, S, H, hd, scale,
-                                               st);
-    return (int)cudaErrorInvalidValue;
+    if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_hd(qkv, out, dout, l, dl, dqkv, B, S, H, hd, scale, dtype, st);
 }
 
 const char* fdt_error_string(int code) {

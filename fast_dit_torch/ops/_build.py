@@ -2,9 +2,10 @@
 
 Each source under `fast_dit_torch/csrc/` compiles into its own shared
 library with a plain C interface (`sm_90a`, `-O3`), at first use, into
-`build/` at the repository root. The file name carries a hash of the source
-and the flags, so an edited source builds anew and an unchanged one is
-loaded as it is. All sources compile in parallel, one `nvcc` each.
+`build/` at the repository root. The file name carries a hash of the source,
+every header under `csrc/` (`*.cuh`) and the flags, so an edited source or
+header builds anew and an unchanged one is loaded as it is. All sources
+compile in parallel, one `nvcc` each.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no `nvcc`.
@@ -63,8 +64,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -25,7 +25,11 @@ not carried over.
 
 Numerics are exact in both dtypes: the TPU kernels' clamped, unnormalised
 bf16 softmax (`_CLAMP`, `_unnormalized_softmax`, :102-111, :226-242) is a
-VPU workaround that is not ported (see the notes in the CUDA sources).
+VPU workaround that is not ported (see the notes in the CUDA sources). The
+bf16 kernels run on the tensor cores and round p, and in the backward ds,
+to bf16 before their products, as the TPU's exact path does (:141, :217,
+:221); the plain versions keep them fp32, and the kernels are held to them
+within 2e-2 (forward, absolute; backward, of max |dqkv|).
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ chip_smoke.py).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -43,6 +44,23 @@ def test_twin_matches_pallas_forward(B, S, H, hd, scale):
     s = float(hd ** -0.5 if scale is None else scale)
     xla = np.asarray(jax.jit(lambda x: _xla_attention_qkv(x, s, H))(qkv))
     assert np.abs(got - xla).max() <= ATOL
+
+
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 64, 16, 72),  # XL-shaped heads (hd 72)
+    (1, 256, 6, 64),  # S/2-shaped, one full TPU q chunk
+])
+def test_bf16_twin_matches_the_bf16_pallas_forward(B, S, H, hd):
+    """The port's bf16 contract against the TPU kernel's bf16 path (clamped,
+    unnormalised softmax): the same bf16 inputs, 2e-2 of the largest output.
+    N(0, 1) inputs keep every logit far below the clamp at 50 (about 5 at
+    most), where the two softmaxes are the same function."""
+    qkv = _qkv(B, S, H, hd, seed=4)
+    pallas = jax.jit(lambda x: jax_flat(x, H, fwd_impl="pallas"))
+    want = np.asarray(pallas(jnp.asarray(qkv, dtype=jnp.bfloat16)).astype(jnp.float32))
+    got = flash_attention_qkv_flat(torch.from_numpy(qkv).to(torch.bfloat16), H)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H * hd)
+    assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
 
 
 def test_auto_on_cpu_takes_the_twin(monkeypatch):
@@ -91,6 +109,18 @@ def test_build_names_libraries_by_source_and_raises_without_nvcc(tmp_path, monke
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert not list(tmp_path.iterdir())
+
+
+def test_build_names_libraries_by_their_headers_too(tmp_path, monkeypatch):
+    # an edited csrc/*.cuh must not load a library built from the old one
+    for name in _build.SOURCES.values():
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("flash_attention_fwd")
+    (tmp_path / "tiles.cuh").write_text("// a header\n")
+    added = _build._target("flash_attention_fwd")
+    (tmp_path / "tiles.cuh").write_text("// an edited header\n")
+    assert len({before, added, _build._target("flash_attention_fwd")}) == 3
 
 
 def test_check_qkv_returns_head_dim_and_backend_names():

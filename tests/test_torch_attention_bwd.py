@@ -10,6 +10,7 @@ chip_smoke.py).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -43,6 +44,27 @@ def test_plain_backward_matches_pallas_backward(B, S, H, hd, scale):
     got = _attention_qkv_bwd_plain(torch.from_numpy(qkv), torch.from_numpy(dout), H, s)
     assert got.shape == (B, S, 3 * H * hd) and got.dtype == torch.float32
     assert np.abs(got.numpy() - np.asarray(want)).max() <= ATOL
+
+
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 64, 16, 72),  # XL-shaped heads (hd 72)
+    (1, 256, 6, 64),  # S/2-shaped, one full TPU q chunk
+])
+def test_bf16_plain_backward_matches_the_bf16_pallas_backward(B, S, H, hd):
+    """The port's bf16 contract against `jax.vjp` through the TPU kernels'
+    bf16 path (clamped, unnormalised softmax, 1/rowsum folded into dO and
+    q): the same bf16 qkv and dO, 2e-2 of the largest gradient. N(0, 1)
+    inputs keep every logit far below the clamp at 50 (about 5 at most),
+    where the two are gradients of the same function."""
+    qkv, dout = _inputs(B, S, H, hd, seed=4)
+    x, g = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (qkv, dout))
+    (want,) = jax.jit(lambda a, b: jax.vjp(
+        lambda y: jax_flat(y, H, fwd_impl="pallas"), a)[1](b))(x, g)
+    want = np.asarray(want.astype(jnp.float32))
+    got = _attention_qkv_bwd_plain(torch.from_numpy(qkv).to(torch.bfloat16),
+                                   torch.from_numpy(dout).to(torch.bfloat16), H, hd ** -0.5)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, 3 * H * hd)
+    assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

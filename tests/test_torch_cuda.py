@@ -22,15 +22,41 @@ from fast_dit_torch.parallel import LocalRing
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # bf16 plain version computes in fp32
-# the backward, relative to max |dqkv|: fp32 sums in other orders; bf16, one
-# rounding of the output and delta formed from the bf16-rounded forward output
+# the backward, relative to max |dqkv|: fp32 sums in other orders; bf16, p and
+# ds rounded to bf16 before their products, the output rounded once and delta
+# formed from the bf16-rounded forward output
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SHAPES = [
     (16, 256, 16, 72),  # DiT-XL/2 at 256², CFG batch of 8 labels
+    (32, 256, 16, 72),  # DiT-XL/2 at 256², training batch 32
+    (2, 1024, 16, 72),  # DiT-XL/2 at 512²: 1024 tokens
     (2, 200, 6, 64),    # a ragged S
     (1, 7, 2, 128),     # S below one tile, the largest head dim
     (3, 65, 4, 8),      # one key past a tile, the smallest head dim
+    # head dims that pad to the bf16 kernels' k step of 16, at ragged S
+    (2, 65, 3, 16), (2, 130, 3, 24), (2, 65, 3, 40), (2, 130, 3, 56),
+    (2, 65, 3, 80), (2, 130, 3, 96), (2, 65, 3, 112),
 ]
+# (shape, large): large logits at the main shape and a ragged one
+CASES = [(*shape, False) for shape in SHAPES] + [(16, 256, 16, 72, True), (2, 200, 6, 64, True)]
+
+
+def _qkv(cuda, B, S, H, hd, dtype, large, seed):
+    """A packed qkv. `large`: q and k scaled by 4, so the logits reach about
+    100 (past the TPU's bf16 clamp at 50) and the row max decides the rows;
+    v scaled by 1/4, so the output stays below 2 and the absolute limits
+    stay the measure (at |o| near 4 one bf16 ulp is 3e-2). Not by 8: the
+    logits then reach ~360, and an exact fp32 softmax carries |logit| x
+    2^-24 of rounding in each p, so two fp32 orders part by ~1.1e-5 of
+    max |dqkv| in the backward, past its 1e-5 limit."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * H * hd, generator=g, device=cuda)
+    if large:
+        qkv[..., :2 * H * hd] *= 4
+        qkv[..., 2 * H * hd:] *= 0.25
+        q, k = (qkv[..., i * H * hd:(i + 1) * H * hd].view(B, S, H, hd) for i in range(2))
+        assert torch.einsum("bqhd,bkhd->bhqk", q, k).max().item() * hd ** -0.5 > 50
+    return qkv.to(dtype)
 
 
 @pytest.fixture
@@ -41,24 +67,24 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,S,H,hd", SHAPES)
-def test_attention_kernel_matches_twin(cuda, B, S, H, hd, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    qkv = torch.randn(B, S, 3 * H * hd, generator=g, device=cuda).to(dtype)
+@pytest.mark.parametrize("B,S,H,hd,large", CASES)
+def test_attention_kernel_matches_twin(cuda, B, S, H, hd, large, dtype):
+    qkv = _qkv(cuda, B, S, H, hd, dtype, large, seed=0)
     before = _build.launch_counts["attention_fwd"]
     out = flash_attention_qkv_flat(qkv, H)
     torch.cuda.synchronize()
     assert _build.launch_counts["attention_fwd"] == before + 1
     assert out.dtype == dtype and out.shape == (B, S, H * hd)
+    assert torch.isfinite(out).all()
     ref = _attention_qkv_plain(qkv, H, hd ** -0.5)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,S,H,hd", SHAPES)
-def test_attention_backward_kernel_matches_plain(cuda, B, S, H, hd, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn(B, S, 3 * H * hd, generator=g, device=cuda).to(dtype).requires_grad_()
+@pytest.mark.parametrize("B,S,H,hd,large", CASES)
+def test_attention_backward_kernel_matches_plain(cuda, B, S, H, hd, large, dtype):
+    qkv = _qkv(cuda, B, S, H, hd, dtype, large, seed=1).requires_grad_()
+    g = torch.Generator(device=cuda).manual_seed(2)
     dout = torch.randn(B, S, H * hd, generator=g, device=cuda).to(dtype)
     before = dict(_build.launch_counts)
     flash_attention_qkv_flat(qkv, H).backward(dout)

@@ -23,8 +23,11 @@ nonzero:
                   plain version's, SDPA's (timed only), the bound, and the
                   kernel's time over SDPA's (x_library) and over the bound (x_bound).
  4. kernel_bwd:   the attention backward the same way, at the training shape, at
-                  1024 tokens, at a ragged S and at large logits, with SDPA's
-                  backward timed beside it.
+                  1024 tokens, at a ragged S and at large logits, with the fused
+                  SDPA backward op alone timed beside it (flash attention's in
+                  bf16, the memory-efficient one in fp32, given one forward's
+                  output and LSE), and one autograd.grad call timed as earlier
+                  runs timed it, the host's time included.
  5. fused_update: the fused AdamW + EMA kernel against `_update_math` over the
                   whole DiT-XL/2 parameter tree for 3 steps, with the fused
                   `torch.optim.AdamW` step timed beside it.
@@ -45,14 +48,18 @@ nonzero:
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
                   shard, at a ragged Sq != Sk and at logits past the clamp, with its
                   time, the plain version's, the flash attention call's (timed only)
-                  and the bound.
-10. ring_kernel_bwd: the hop backward the same way, with SDPA's backward timed beside.
+                  and the bound; bf16 rows also time the fp32-core body on the same
+                  inputs (parent_ms, dtype code 2, which no wrapper passes).
+10. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
+                  alone timed beside it, as in kernel_bwd.
 11. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
                   on the card against the CPU; the full model's forward against its
                   unsharded forward, fp32 and bf16; DDPM sampling over the sharded
                   forward; the gradient of sum(out^2) against the unsharded model's;
                   the hop kernels' launch counts checked exactly.
-Then the `kernels` line, the nvidia-smi line, and the final status line.
+Then the `kernels` line, the nvidia-smi line, and the final status line. Kernel,
+plain and library times are device times: `cuda_ms` queues the timed calls behind
+a spin of the device, so the host's time per call does not show in them.
 """
 
 from __future__ import annotations
@@ -77,7 +84,8 @@ from fast_dit_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_qkv_flat)
 from fast_dit_torch.ops import fused_update as fu  # noqa: E402
 from fast_dit_torch.ops.ring_attention import (  # noqa: E402
-    _hop_backward_plain, _hop_forward_plain, _launch_hop_bwd, _launch_hop_fwd)
+    _BWD_ARGS, _FWD_ARGS, _hop_backward_plain, _hop_forward_plain, _launch_hop_bwd,
+    _launch_hop_fwd)
 from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward  # noqa: E402
 from fast_dit_torch import sample as cli  # noqa: E402
 from fast_dit_torch.train import cli as train_cli  # noqa: E402
@@ -123,12 +131,39 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls."""
+_spin_cycles_per_ms = None
+
+
+def spin(ms) -> None:
+    """Keep the device busy for about `ms` (torch.cuda._sleep, its clock
+    calibrated on the first call)."""
+    global _spin_cycles_per_ms
+    if _spin_cycles_per_ms is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(2):  # the second is timed
+            start.record()
+            torch.cuda._sleep(1 << 20)
+            end.record()
+            end.synchronize()
+        _spin_cycles_per_ms = (1 << 20) / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * _spin_cycles_per_ms))
+
+
+def cuda_ms(fn, iters=20, warmup=3, behind_spin=True) -> float:
+    """Mean device time of `fn` over `iters` back-to-back calls. With
+    `behind_spin` the timed calls are queued behind a spin of the device,
+    twice as long as the host took to issue them, so the events time the
+    device and not the host's own time per call (Python, checks, the
+    allocator), which exceeds the device's for small calls. Without it
+    the events time whichever of the two is slower."""
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if behind_spin:
+        spin(min(2 * host_ms * iters + 1, 1000))
     start.record()
     for _ in range(iters):
         fn()
@@ -222,6 +257,26 @@ def _ratios(row):
     return row
 
 
+def sdpa_backward(q, k, v, do, scale):
+    """(a call of the fused SDPA backward op alone, the op's name), on
+    (B, H, S, hd) tensors: flash attention's in bf16, the memory-efficient
+    one in fp32 (flash takes no fp32), given the output and LSE of one
+    forward of the same op. Nothing of autograd runs in the call, so it
+    times the card and not the host."""
+    aten = torch.ops.aten
+    if q.dtype == torch.bfloat16:
+        out, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, False, False, scale=scale)
+        return (lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=scale),
+            "aten._scaled_dot_product_flash_attention_backward")
+    out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, False, scale=scale)
+    return (lambda: aten._scaled_dot_product_efficient_attention_backward(
+        do, q, k, v, None, out, lse, seed, offset, 0.0, [True, True, True, False], False,
+        scale=scale), "aten._scaled_dot_product_efficient_attention_backward")
+
+
 def phase_kernel():
     """Kernel vs twin at every shape and dtype, and at large logits; returns
     the main-shape bf16 row."""
@@ -280,11 +335,13 @@ def phase_kernel_bwd():
                 raise AssertionError(f"attention backward vs plain at {(B, S, H, hd)} {dtype} "
                                      f"large={large}: max abs err {err} > "
                                      f"{BWD_RTOL[dtype]} x {peak}")
-            # SDPA's backward alone: the graph is kept, only the backward is timed
+            # SDPA's backward alone: the fused op, and (as in earlier runs) one
+            # autograd.grad call through the kept graph, which times the host too
             q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
                        .contiguous().requires_grad_() for i in range(3))
             o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
             do_l = dout.view(B, S, H, hd).transpose(1, 2).contiguous()
+            lib, library = sdpa_backward(q.detach(), k.detach(), v.detach(), do_l, scale)
             nbytes = 8 * B * S * D * qkv.element_size()
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 10 * B * S * S * D / PEAK_FLOPS[dtype] * 1e3
@@ -294,14 +351,15 @@ def phase_kernel_bwd():
                    "max_abs_dqkv": peak, "tol": BWD_RTOL[dtype] * peak,
                    "kernel_ms": cuda_ms(lambda: _launch_bwd(qkv, out, dout, lse, H, hd, scale)),
                    "plain_ms": cuda_ms(lambda: _attention_qkv_bwd_plain(qkv, dout, H, scale)),
-                   "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                       o, (q, k, v), do_l, retain_graph=True)),
+                   "library_ms": cuda_ms(lib), "library": library,
+                   "library_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
+                       o, (q, k, v), do_l, retain_graph=True), behind_spin=False),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             emit(_ratios(row))
             if (B, S, H, hd) == TRAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
-            del qkv, dout, out, lse, dqkv, ref, q, k, v, o, do_l
+            del qkv, dout, out, lse, dqkv, ref, q, k, v, o, do_l, lib
     torch.cuda.empty_cache()
     return main
 
@@ -641,6 +699,33 @@ def _ring_cases(shapes):
     return [(shape, False) for shape in shapes] + [(RING_CLAMP_SHAPE, True)]
 
 
+def fp32_core_hops(q, k, v, do, dl, scale, H):
+    """(forward, backward): calls of the two hop kernels' fp32-core bodies on
+    bf16 q, k, v (dtype code 2, which no wrapper passes): the bf16 bodies
+    before the tensor-core redesign, timed beside it as `parent_ms`."""
+    B, Sq, D = q.shape
+    Sk, hd = k.shape[1], D // H
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1))]
+    o = torch.empty(B, Sq, D, device="cuda")
+    l = torch.empty(B, Sq, H, device="cuda")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fwd = _build.function("ring_hop_fwd", "fdt_ring_hop_fwd", _FWD_ARGS)
+    bwd = _build.function("ring_hop_bwd", "fdt_ring_hop_bwd", _BWD_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_fwd():
+        _build.check_status("ring_hop_fwd", fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), *strides,
+            B, Sq, Sk, H, hd, scale, 2, stream), "fp32-core ring_hop_fwd")
+
+    def run_bwd():
+        _build.check_status("ring_hop_bwd", bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dl.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *strides, B, Sq, Sk, H, hd, scale, 2,
+            stream), "fp32-core ring_hop_bwd")
+    return run_fwd, run_bwd
+
+
 def phase_ring_kernel():
     """Kernel 4 vs its plain version at every shape and dtype; returns the
     sampling-shape bf16 row. The library yardstick is the flash attention
@@ -686,7 +771,9 @@ def phase_ring_kernel():
                    "library_ms": cuda_ms(lib), "library": library,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            emit(row)
+            if dtype == torch.bfloat16:
+                row["parent_ms"] = cuda_ms(fp32_core_hops(q, k, v, None, None, scale, H)[0])
+            emit(_ratios(row))
             if (B, Sq, Sk, H, hd) == RING_SHAPES[0] and dtype == torch.bfloat16 and not clamp:
                 main = row
             del q, k, v, o, l, want_o, want_l, q4, k4, v4
@@ -712,11 +799,13 @@ def phase_ring_kernel_bwd():
                     and max(errs.values()) <= RING_RTOL[dtype]):
                 raise AssertionError(f"ring hop backward vs plain at {(B, Sq, Sk, H, hd)} "
                                      f"{dtype} clamp={clamp}: {errs} > {RING_RTOL[dtype]}")
-            # SDPA's backward alone: the graph is kept, only the backward is timed
+            # SDPA's backward alone: the fused op, and (as in earlier runs) one
+            # autograd.grad call through the kept graph, which times the host too
             q4, k4, v4 = (t.view(B, t.shape[1], H, hd).transpose(1, 2).contiguous()
                           .requires_grad_() for t in (q, k, v))
             o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=scale)
             do4 = do.to(dtype).view(B, Sq, H, hd).transpose(1, 2).contiguous()
+            lib, library = sdpa_backward(q4.detach(), k4.detach(), v4.detach(), do4, scale)
             # read q, k, v and write dq, dk, dv in the input dtype; read do, dl fp32
             nbytes = (2 * (B * Sq * D + 2 * B * Sk * D) * q.element_size()
                       + 4 * (B * Sq * D + B * Sq * H))
@@ -730,15 +819,17 @@ def phase_ring_kernel_bwd():
                    "rtol": RING_RTOL[dtype],
                    "kernel_ms": cuda_ms(lambda: _launch_hop_bwd(q, k, v, do, dl, scale, H)),
                    "plain_ms": cuda_ms(lambda: _hop_backward_plain(q, k, v, do, dl, scale, H)),
-                   "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                       o4, (q4, k4, v4), do4, retain_graph=True)),
-                   "library": "SDPA backward alone (normalised softmax)",
+                   "library_ms": cuda_ms(lib), "library": library + " (normalised softmax)",
+                   "library_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
+                       o4, (q4, k4, v4), do4, retain_graph=True), behind_spin=False),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            emit(row)
-            if (B, Sq, Sk, H, hd) == RING_BWD_SHAPES[0] and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
+                row["parent_ms"] = cuda_ms(fp32_core_hops(q, k, v, do, dl, scale, H)[1])
+            emit(_ratios(row))
+            if (B, Sq, Sk, H, hd) == RING_BWD_SHAPES[0] and dtype == torch.bfloat16 and not clamp:
                 main = row
-            del q, k, v, do, dl, got, want, q4, k4, v4, o4, do4
+            del q, k, v, do, dl, got, want, q4, k4, v4, o4, do4, lib
     torch.cuda.empty_cache()
     return main
 

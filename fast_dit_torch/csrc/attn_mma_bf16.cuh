@@ -1,5 +1,6 @@
 // Tile code shared by the bf16 attention kernels for Hopper (sm_90a):
-// `flash_attention_fwd.cu` and `flash_attention_bwd.cu`.
+// `flash_attention_fwd.cu`, `flash_attention_bwd.cu` and the ring hops
+// `ring_hop_fwd.cu` and `ring_hop_bwd.cu`.
 //
 // - Tiles of 64 rows of one head's hd columns sit in shared memory as bf16,
 //   row-major, with hd padded to HDP (the next multiple of 16, the k step of
@@ -86,6 +87,48 @@ __device__ __forceinline__ void zero_padding(bf16* tiles, int n) {
             const int r = c / PAD_CHUNKS, ch = c % PAD_CHUNKS;
             *reinterpret_cast<uint4*>(tiles + r * pitch(HD) + HD + ch * 8) =
                 make_uint4(0, 0, 0, 0);
+        }
+    }
+}
+
+// Start copying rows [row0, row0 + 64) of HD fp32 columns, from column
+// `col` of a row-major fp32 tensor, into a dense fp32 tile dst[r * HD + d].
+// Rows >= S are zero-filled. All threads of the block call it.
+template <int HD>
+__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* __restrict__ base,
+                                                    int row0, int S, int64_t row_stride,
+                                                    int col) {
+    constexpr int CHUNKS = HD / 4;
+    for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
+        const int r = c / CHUNKS, ch = c % CHUNKS;
+        const int row = row0 + r;
+        const bool valid = row < S;
+        const float* src = base + (valid ? (int64_t)row * row_stride : 0) + col + ch * 4;
+        cp_async16(dst + c * 4, src, valid);
+    }
+}
+
+// Round rows [row0, row0 + 64) of HD fp32 columns, from column `col` of a
+// row-major fp32 array in device or shared memory, to bf16 into the tile
+// `dst` (pitch(HD)); rows >= S are zero. 16-byte loads; all threads of the
+// block call it.
+template <int HD>
+__device__ __forceinline__ void f32_to_tile(bf16* dst, const float* src, int row0, int S,
+                                            int64_t row_stride, int col) {
+    constexpr int CHUNKS = HD / 4;
+#pragma unroll
+    for (int i = 0; i < (ROWS * CHUNKS + THREADS - 1) / THREADS; ++i) {
+        const int c = threadIdx.x + i * THREADS;
+        if (c < ROWS * CHUNKS) {
+            const int r = c / CHUNKS, ch = c % CHUNKS;
+            float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (row0 + r < S)
+                x = *reinterpret_cast<const float4*>(src + (int64_t)(row0 + r) * row_stride +
+                                                     col + ch * 4);
+            __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+            __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+            *reinterpret_cast<uint2*>(dst + r * pitch(HD) + ch * 4) =
+                make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
         }
     }
 }

@@ -11,41 +11,72 @@
 //     o_u[b, i, h*hd:(h+1)*hd] = sum_j p_u[i, j] v_h[j]     fp32 (B, Sq, D)
 //     l[b, i, h]               = sum_j p_u[i, j]            fp32 (B, Sq, H)
 // There is no running max and no normalisation: the clamp keeps every p_u
-// at most exp(50) ~ 5e21, far inside fp32, so the partials of the hops of a
-// ring add with no rescaling, and the ring divides once at the end. q, k and
-// v may be column views of the packed (B, S, 3D) projection: each comes with
-// its own batch and row stride (elements); o_u and l are contiguous.
+// at most exp(50) ~ 5e21, far inside fp32 (and bf16's exponent range), so
+// the partials of the hops of a ring add with no rescaling, and the ring
+// divides once at the end. q, k and v may be column views of the packed
+// (B, S, 3D) projection: each comes with its own batch and row stride
+// (elements); o_u and l are contiguous.
 //
 // What bounds it on the H100. At the sequence-parallel DiT-XL/2 512² shape
 // (B = 4 shards x batch 4 = 16, Sq = Sk = 256, H = 16, hd = 72, D = 1152)
 // one call does 4*B*Sq*Sk*D = 4.83 GFLOP and must read q, k, v (9.4 MB each
-// in bf16) and write o_u (18.9 MB fp32) and l: 47.3 MB. Against the data
+// in bf16) and write o_u (18.9 MB fp32) and l: 47.5 MB. Against the data
 // sheet (3.35 TB/s; 989 TFLOP/s bf16 tensor cores; 67 TFLOP/s fp32 without
-// them) the bf16 call is bound by bytes at ~14 us and the fp32 call by
-// operations at ~72 us. This kernel computes on the fp32 CUDA cores (no mma),
-// so in bf16 it sits far above its bound: tensor cores are later work.
+// them) the bf16 call is bound by bytes at ~14 us (its products alone take
+// 4.9 us) and the fp32 call by operations at ~72 us.
 //
-// Design: the block structure of `flash_attention_fwd.cu` without its online
-// softmax.
-//  - One 128-thread block per (64-query tile, head, batch row). The TPU
-//    kernel's grid over batch rows with an unrolled head loop and a
-//    sequential q-chunk loop becomes independent blocks; nothing carries
-//    between them.
-//  - The Q tile (64 x hd) is staged once in shared memory, K and V tiles of
-//    64 keys in turn, all converted to fp32; Q and K transposed ([d][row])
-//    so the score loop reads float4s without bank conflicts.
+// bf16 (dtype 1, every call of the sequence-parallel path): tensor cores,
+// kernel 1's design (`flash_attention_fwd.cu`) without its online softmax,
+// with the tile code of `attn_mma_bf16.cuh`.
+//  - One 128-thread block (4 warps x 16 query rows) per (64-query tile,
+//    head, batch row). The Q tile is read once through q's own strides;
+//    64-key K and V tiles stream through a two-stage ring filled with
+//    16-byte cp.async (rows >= Sk zero-filled), so the next tile loads while
+//    the current one multiplies. Tiles are bf16 with hd padded to a multiple
+//    of 16 by zero columns in shared memory only (72 -> 80), pitch 88.
+//  - S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products with fp32
+//    accumulation (V through ldmatrix.trans). p_u = exp(min(s, 50)) is
+//    formed in registers: s = u * scale in fp32 is clamped in the natural
+//    domain, as the plain version does (at the integer clamp-crossing inputs
+//    s lands exactly on 50), and only then exp2f(min(s, 50) * log2(e)).
+//    Keys >= Sk give p_u = 0.
+//  - p_u is rounded to bf16 once, and that value goes both into the A
+//    fragment of P V and into the row sum l: the TPU kernel does the same
+//    (`pc = p_u.astype(dtype)` feeds both its product with v and its
+//    ones-matmul, :99-102), so o_u and l are built from the same values.
+//    Each thread sums its share of a row; the quad adds up once at the end.
+//  - o_u is fp32 and the largest stream (18.9 of the 47.5 MB). It is
+//    written straight from the accumulator fragments as float2s: each quad
+//    writes 32 contiguous bytes of a row, whole sectors. Staging each warp's
+//    16 x hd tile in shared memory (the K/V ring, free after the last tile)
+//    for 16-byte stores was measured against it on the H100: slower at the
+//    512² shape, level at 4096-token shards. Query rows >= Sq are never
+//    stored.
+//  Why mma.sync and not wgmma + TMA: the bound is bytes (14 us against 4.9
+//  us of products), mma.sync's rate puts the products at a few us, and a
+//  144-byte head row does not fit the 128-byte swizzle atom of a single TMA
+//  box and of wgmma's shared-memory descriptors.
+//
+// fp32 (dtype 0): the fp32-core body below (`ring_hop_fwd_kernel<float>`),
+// which holds the 1e-5 limit against the plain version.
+//  - One 128-thread block per (64-query tile, head, batch row); the Q tile
+//    (64 x hd) is staged once in shared memory, K and V tiles of 64 keys in
+//    turn, all fp32; Q and K transposed ([d][row]) so the score loop reads
+//    float4s without bank conflicts.
 //  - Each thread owns a 4-row x 8-key micro-tile of the scores and, in the
 //    P.V product, the same 4 rows x hd/8 output columns (column cg + 8j).
 //    The row sums are three xor-shuffles over the 8 neighbouring lanes that
-//    share a row group.
-//  - exp is `expf` of the clamped fp32 logit, as the plain version computes
-//    it; p_u stays fp32 into the product with v.
-//  - The ragged edges are masked: keys >= Sk give p_u = 0, query rows >= Sq
-//    are loaded as zeros and never stored.
+//    share a row group. exp is `expf` of the clamped fp32 logit; p_u stays
+//    fp32. Keys >= Sk give p_u = 0, query rows >= Sq are never stored.
+// dtype 2 runs bf16 inputs through that fp32-core body: the bf16 body of
+// earlier versions, which no wrapper passes; it is kept as the yardstick of
+// the tensor-core body (`chip_smoke.py`, `tests/test_torch_cuda.py`).
 //
-// Documented deviation from the TPU kernel: it casts p_u to the input dtype
-// before the products with v and with the ones matrix that forms l
-// (:99-102); this kernel keeps p_u in fp32.
+// The TPU kernel's grid over batch rows, with an unrolled head loop and a
+// sequential q-chunk loop, becomes independent blocks in both bodies;
+// nothing carries between them. The bf16 body rounds p_u as the TPU kernel
+// does; the fp32 body and the plain version keep p_u in fp32 (a no-op
+// difference for fp32 inputs).
 //
 // Interface: a plain C function, bound from Python with ctypes. It launches
 // on the given stream, allocates nothing, and returns cudaGetLastError().
@@ -54,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attn_mma_bf16.cuh"
 
 namespace {
 
@@ -235,13 +268,135 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* o, float*
     return cudaGetLastError();
 }
 
-template <typename T>
+// ---- bf16: tensor cores ----------------------------------------------------
+
+using attn_mma::bf16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+__global__ void __launch_bounds__(attn_mma::THREADS)
+ring_hop_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ l, Strides st, int Sq, int Sk, int H, float scale) {
+    using namespace attn_mma;
+    constexpr int T = tile_elems(HD);
+    constexpr int NT = HD / 8;  // n8 tiles of the output
+    extern __shared__ __align__(16) unsigned char smem_bf16[];
+    bf16* qs = reinterpret_cast<bf16*>(smem_bf16);  // Q tile
+    bf16* kv = qs + T;                                // two stages of (K tile, V tile)
+
+    const int q0 = blockIdx.x * ROWS;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int D = H * HD;
+    const int col = h * HD;
+    const bf16* qb = q + (int64_t)b * st.qb;
+    const bf16* kb = k + (int64_t)b * st.kb;
+    const bf16* vb = v + (int64_t)b * st.vb;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;  // this thread's rows g, g + 8; columns 2t, 2t + 1
+
+    zero_padding<HD>(qs, 5);
+    load_tile_async<HD>(qs, qb, q0, Sq, st.qr, col);
+    load_tile_async<HD>(kv, kb, 0, Sk, st.kr, col);
+    load_tile_async<HD>(kv + T, vb, 0, Sk, st.vr, col);
+    cp_async_commit();
+
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    float l0 = 0.f, l1 = 0.f;  // this thread's share of rows g and g + 8
+
+    const int ntiles = (Sk + ROWS - 1) / ROWS;
+    for (int it = 0; it < ntiles; ++it) {
+        const bf16* kt = kv + (it % 2) * 2 * T;
+        const bf16* vt = kt + T;
+        if (it + 1 < ntiles) {
+            // the other stage's readers finished before the last barrier
+            bf16* nk = kv + ((it + 1) % 2) * 2 * T;
+            load_tile_async<HD>(nk, kb, (it + 1) * ROWS, Sk, st.kr, col);
+            load_tile_async<HD>(nk + T, vb, (it + 1) * ROWS, Sk, st.vr, col);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        float p[8][4];
+        mma_abt<HD>(p, qs + warp * 16 * pitch(HD), kt);
+        // p_u = exp(min(s, 50)), clamped in the natural domain, rounded to
+        // bf16 once: the row sums add the values that P V multiplies
+        const int k0 = it * ROWS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool valid = k0 + 8 * j + 2 * t + (e % 2) < Sk;
+                const float pu = exp2f(fminf(p[j][e] * scale, CLAMP) * LOG2E);
+                p[j][e] = valid ? __bfloat162float(__float2bfloat16(pu)) : 0.f;
+            }
+            l0 += p[j][0] + p[j][1];
+            l1 += p[j][2] + p[j][3];
+        }
+        mma_ab<HD>(acc, p, vt);
+        __syncthreads();  // this stage is refilled next
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int r0 = q0 + warp * 16;
+    if (t == 0) {
+        float* lb = l + (int64_t)b * Sq * H + h;
+        if (r0 + g < Sq) lb[(int64_t)(r0 + g) * H] = l0;
+        if (r0 + g + 8 < Sq) lb[(int64_t)(r0 + g + 8) * H] = l1;
+    }
+    // o_u straight from the fragments: each quad writes 32 contiguous bytes
+    // of a row, whole sectors (hd * 4 bytes is a multiple of 32)
+    float* ob = o + ((int64_t)b * Sq + r0) * D + col;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+        if (r0 + g < Sq)
+            *reinterpret_cast<float2*>(ob + (int64_t)g * D + 8 * j + 2 * t) =
+                make_float2(acc[j][0], acc[j][1]);
+        if (r0 + g + 8 < Sq)
+            *reinterpret_cast<float2*>(ob + (int64_t)(g + 8) * D + 8 * j + 2 * t) =
+                make_float2(acc[j][2], acc[j][3]);
+    }
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, float* o, float* l,
+                        const Strides& st, int B, int Sq, int Sk, int H, float scale,
+                        cudaStream_t stream) {
+    // the Q tile and two stages of K and V tiles
+    constexpr size_t smem = 5 * (size_t)attn_mma::tile_elems(HD) * sizeof(bf16);
+    cudaError_t err = cudaFuncSetAttribute(ring_hop_fwd_bf16_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + attn_mma::ROWS - 1) / attn_mma::ROWS, H, B);
+    ring_hop_fwd_bf16_kernel<HD><<<grid, attn_mma::THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        o, l, st, Sq, Sk, H, scale);
+    return cudaGetLastError();
+}
+
+// dtype 0: the fp32-core body on fp32; 1: the tensor-core body on bf16; 2:
+// the fp32-core body on bf16
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, float* o, float* l,
                         const Strides& st, int B, int Sq, int Sk, int H, int hd, float scale,
-                        cudaStream_t stream) {
+                        int dtype, cudaStream_t stream) {
     switch (hd) {
-#define FDT_HD_CASE(N) \
-    case N: return launch<T, N>(q, k, v, o, l, st, B, Sq, Sk, H, scale, stream);
+#define FDT_HD_CASE(N)                                                                       \
+    case N:                                                                                  \
+        return dtype == 0   ? launch<float, N>(q, k, v, o, l, st, B, Sq, Sk, H, scale, stream) \
+               : dtype == 1 ? launch_bf16<N>(q, k, v, o, l, st, B, Sq, Sk, H, scale, stream)   \
+                            : launch<__nv_bfloat16, N>(q, k, v, o, l, st, B, Sq, Sk, H, scale, \
+                                                       stream);
         FDT_HD_CASE(8) FDT_HD_CASE(16) FDT_HD_CASE(24) FDT_HD_CASE(32)
         FDT_HD_CASE(40) FDT_HD_CASE(48) FDT_HD_CASE(56) FDT_HD_CASE(64)
         FDT_HD_CASE(72) FDT_HD_CASE(80) FDT_HD_CASE(88) FDT_HD_CASE(96)
@@ -255,26 +410,21 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, float* o, f
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q (B, Sq, H*hd) and k, v (B, Sk, H*hd)
-// of that dtype, each with unit column stride and its own batch and row
-// strides (elements), 16-byte aligned rows; o (B, Sq, H*hd) and l (B, Sq, H)
-// are contiguous fp32. hd is a multiple of 8, at most 128.
+// dtype: 0 = float32, 1 = bfloat16 (tensor cores), 2 = bfloat16 through the
+// fp32-core body (a yardstick; the wrappers never pass it). q (B, Sq, H*hd)
+// and k, v (B, Sk, H*hd) of that dtype, each with unit column stride and its
+// own batch and row strides (elements), 16-byte aligned rows; o (B, Sq, H*hd)
+// and l (B, Sq, H) are contiguous fp32. hd is a multiple of 8, at most 128.
 int fdt_ring_hop_fwd(const void* q, const void* k, const void* v, void* o, void* l,
                      long long q_bstride, long long q_rstride, long long k_bstride,
                      long long k_rstride, long long v_bstride, long long v_rstride, int B,
                      int Sq, int Sk, int H, int hd, float scale, int dtype, void* stream) {
-    if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535)
+    if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || B > 65535 || H > 65535 || dtype < 0 || dtype > 2)
         return (int)cudaErrorInvalidValue;
     const Strides st{(int64_t)q_bstride, (int64_t)q_rstride, (int64_t)k_bstride,
                      (int64_t)k_rstride, (int64_t)v_bstride, (int64_t)v_rstride};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* of = static_cast<float*>(o);
-    float* lf = static_cast<float*>(l);
-    if (dtype == 0)
-        return (int)dispatch_hd<float>(q, k, v, of, lf, st, B, Sq, Sk, H, hd, scale, s);
-    if (dtype == 1)
-        return (int)dispatch_hd<__nv_bfloat16>(q, k, v, of, lf, st, B, Sq, Sk, H, hd, scale, s);
-    return (int)cudaErrorInvalidValue;
+    return (int)dispatch_hd(q, k, v, static_cast<float*>(o), static_cast<float*>(l), st, B, Sq,
+                            Sk, H, hd, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* fdt_error_string(int code) {

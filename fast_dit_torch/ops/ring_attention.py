@@ -29,9 +29,11 @@ What is not carried over: the TPU's `H*hd % 128 == 0` lane rule and its
 take hd any multiple of 8 up to 128 and any Sq and Sk. The v5e crossover to
 the XLA hop forward below 2048-token shards (`_HOP_PALLAS_FWD_MIN_SEQ`,
 :289-306) is not carried over either: every bf16 hop forward on the card
-goes through the kernel. The kernels keep p_u in fp32 before its product
-with v and do, where the TPU kernel casts it to the input dtype first
-(:99-102, :143-148): a documented deviation (`ROADMAP.md` §3).
+goes through the kernel. The kernels' bf16 bodies run on the tensor cores
+and round p_u, do and du to bf16 before their products, as the TPU kernels
+do (`pc`, `doc`, `duc`, :99-102, :143-148), with l summed from the rounded
+p_u; the plain versions (and the kernels' fp32 bodies) keep them fp32, a
+documented deviation of the plain versions (`ROADMAP.md` §3).
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ def _check_hop(q, kb, vb, num_heads: int) -> int:
 
 
 def _launch_hop_fwd(q, kb, vb, scale: float, num_heads: int):
-    """Kernel 4: (o_u fp32 (B, Sq, D), l fp32 (B, Sq, H))."""
+    """Kernel 4: (o_u fp32 (B, Sq, D), l fp32 (B, Sq, H)); bf16 on the
+    tensor cores, fp32 on the fp32 cores."""
     hd = _check_hop(q, kb, vb, num_heads)
     elem = q.element_size()
     strides = [s for t, w in ((q, "q"), (kb, "k"), (vb, "v")) for s in _check_flat(t, w, elem)]
@@ -147,7 +150,9 @@ def _launch_hop_fwd(q, kb, vb, scale: float, num_heads: int):
 
 
 def _launch_hop_bwd(q, kb, vb, do, dl, scale: float, num_heads: int):
-    """Kernel 5: (dq, dk, dv) in the input dtype from fp32 do and dl."""
+    """Kernel 5: (dq, dk, dv) in the input dtype from fp32 do and dl; bf16
+    on the tensor cores (do rounded to bf16 inside the kernel), fp32 on the
+    fp32 cores."""
     hd = _check_hop(q, kb, vb, num_heads)
     B, Sq, D = q.shape
     Sk = kb.shape[1]

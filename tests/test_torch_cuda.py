@@ -14,7 +14,7 @@ from fast_dit_torch.ops import _build
 from fast_dit_torch.ops import fused_update as fu
 from fast_dit_torch.ops.flash_attention import (_attention_qkv_bwd_plain, _attention_qkv_plain,
                                                 _launch_fwd, flash_attention_qkv_flat)
-from fast_dit_torch.ops.ring_attention import (_FWD_ARGS, _hop_backward_plain,
+from fast_dit_torch.ops.ring_attention import (_BWD_ARGS, _FWD_ARGS, _hop_backward_plain,
                                                _hop_forward_plain, _launch_hop_bwd,
                                                _launch_hop_fwd, ring_attention)
 from fast_dit_torch.parallel import LocalRing
@@ -125,13 +125,17 @@ def test_fused_update_kernel_matches_update_math(cuda, p_dtype, mu_dtype):
 
 
 # the ring hop: (B, Sq, Sk, H, hd); fp32 and bf16 relative to max |output|:
-# sums in other orders (the bf16 plain version computes in fp32 too)
+# fp32, sums in other orders; bf16, the kernels round p_u, do and du to bf16
+# before their products where the plain version keeps them fp32
 HOP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 HOP_SHAPES = [
     (16, 256, 256, 16, 72),  # DiT-XL/2 512², 4 shards of 256 tokens, batch 4
     (2, 200, 136, 6, 64),    # ragged, Sq != Sk
     (1, 7, 70, 2, 128),      # Sq below one tile, the largest head dim
     (3, 65, 9, 4, 8),        # one query past a tile, the smallest head dim
+    # odd n8 tile counts (5, 15) and hd padded by 8 to the bf16 k step
+    (2, 130, 70, 3, 40),
+    (2, 65, 136, 3, 120),
 ]
 
 
@@ -175,6 +179,65 @@ def test_ring_hop_kernels_match_plain(cuda, B, Sq, Sk, H, hd, dtype, clamp):
     for got, want in zip((dq, dk, dv), _hop_backward_plain(q, k, v, do, dl, scale, H)):
         assert got.dtype == dtype and got.shape == want.shape
         assert torch.isfinite(got).all() and _rel(got, want) <= HOP_RTOL[dtype]
+
+
+def test_bf16_ring_hop_kernels_match_plain_at_a_4096_token_shard(cuda):
+    """DiT-XL/2 at 1024² over a 4-card ring: 16 key tiles per block."""
+    B, Sq, Sk, H, hd = 8, 1024, 1024, 16, 72
+    q, k, v, do, dl = _hop_inputs(cuda, B, Sq, Sk, H, hd, torch.bfloat16, seed=6)
+    scale = hd ** -0.5
+    got = _launch_hop_fwd(q, k, v, scale, H) + _launch_hop_bwd(q, k, v, do, dl, scale, H)
+    torch.cuda.synchronize()
+    want = _hop_forward_plain(q, k, v, scale, H) + _hop_backward_plain(q, k, v, do, dl, scale, H)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel(a, b) <= HOP_RTOL[torch.bfloat16]
+
+
+def _fp32_core_hops(q, k, v, do, dl, scale, H):
+    """(forward, backward) launches of the hop kernels' fp32-core bodies on
+    bf16 inputs: dtype code 2, which no wrapper passes."""
+    B, Sq, D = q.shape
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1))]
+    shape = (B, Sq, k.shape[1], H, D // H, scale, 2, torch.cuda.current_stream().cuda_stream)
+    o, l = torch.empty(B, Sq, D, device=q.device), torch.empty(B, Sq, H, device=q.device)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    fwd = _build.function("ring_hop_fwd", "fdt_ring_hop_fwd", _FWD_ARGS)
+    bwd = _build.function("ring_hop_bwd", "fdt_ring_hop_bwd", _BWD_ARGS)
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    return (lambda: fwd(*ptrs, o.data_ptr(), l.data_ptr(), *strides, *shape),
+            lambda: bwd(*ptrs, do.data_ptr(), dl.data_ptr(), *(t.data_ptr() for t in grads),
+                        *strides, *shape))
+
+
+def _device_ms(fn, iters=20):
+    """Mean device time per call; the timed calls queue behind a spin of the
+    device (about 20 ms, far longer than the host takes to issue them), so
+    the wrapper's host time does not show."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 25)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def test_bf16_hop_kernels_beat_their_fp32_core_bodies(cuda):
+    """The tensor-core bodies run the bf16 hops (a loose bound, 2x, against
+    the 4.5-5.3x measured on an H100, so that the path taken is checked and
+    not the noise)."""
+    B, Sq, Sk, H, hd = 16, 256, 256, 16, 72
+    q, k, v, do, dl = _hop_inputs(cuda, B, Sq, Sk, H, hd, torch.bfloat16, seed=7)
+    scale = hd ** -0.5
+    old_fwd, old_bwd = _fp32_core_hops(q, k, v, do, dl, scale, H)
+    assert old_fwd() == 0 and old_bwd() == 0
+    fwd_ms = _device_ms(lambda: _launch_hop_fwd(q, k, v, scale, H))
+    bwd_ms = _device_ms(lambda: _launch_hop_bwd(q, k, v, do, dl, scale, H))
+    assert 2 * fwd_ms <= _device_ms(old_fwd)
+    assert 2 * bwd_ms <= _device_ms(old_bwd)
 
 
 def test_ring_hop_kernels_read_packed_columns_in_place(cuda):

@@ -102,6 +102,75 @@ def test_hop_backward_plain_matches_pallas(dtype, case):
         assert _rel_err(g.float().numpy(), w) <= HOP_RTOL[dtype], name
 
 
+def _hops_rounded_as_the_bf16_kernels(q, k, v, do, dl, scale, num_heads):
+    """One hop forward and backward in torch, rounded where the bf16 CUDA
+    bodies (csrc/ring_hop_{fwd,bwd}.cu) round: p_u, do and du to bf16 before
+    their products, l summed from the rounded p_u, every sum fp32. q, k, v
+    bf16 (B, S, D), do and dl fp32; (o_u, l) fp32 and (dq, dk, dv) bf16."""
+    B, Sq, D = q.shape
+    hd = D // num_heads
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    qh, kh, vh = (t.float().reshape(B, t.shape[1], num_heads, hd) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    p_u = torch.exp(torch.clamp(s, max=50.0))
+    pc, doc = rnd(p_u), rnd(do).reshape(B, Sq, num_heads, hd)
+    o = torch.einsum("bhqk,bkhd->bqhd", pc, vh).reshape(B, Sq, D)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doc, vh) + dl.transpose(1, 2)[..., None]
+    du = rnd(torch.where(s < 50.0, p_u * dp, 0.0) * scale)
+    grads = (torch.einsum("bhqk,bkhd->bqhd", du, kh), torch.einsum("bhqk,bqhd->bkhd", du, qh),
+             torch.einsum("bhqk,bqhd->bkhd", pc, doc))
+    return (o, pc.sum(-1).transpose(1, 2),
+            *(g.reshape(B, -1, D).to(torch.bfloat16) for g in grads))
+
+
+@pytest.mark.parametrize("case,shape", [("normal", (2, 64, 40, 16, 72)),
+                                        ("clamp", (2, 64, 40, 6, 64))])
+def test_bf16_kernel_rounding_stays_within_the_card_limit(case, shape):
+    """The bf16 hop bodies round p_u, do and du to bf16 where the plain
+    versions keep fp32; the card holds them to 2e-2 of the largest output
+    of the plain versions. That rounding alone, at chip_smoke.py's shapes
+    scaled down and at the integer clamp-crossing inputs, stays inside it."""
+    B, Sq, Sk, H, hd = shape
+    rs = np.random.RandomState(10)
+    if case == "clamp":
+        q, k = (rs.randint(-8, 9, (B, S, H * hd)).astype(np.float32) for S in (Sq, Sk))
+    else:
+        q, k = (rs.randn(B, S, H * hd).astype(np.float32) for S in (Sq, Sk))
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in (q, k, rs.randn(B, Sk, H * hd).astype(np.float32)))
+    do = torch.from_numpy(rs.randn(B, Sq, H * hd).astype(np.float32))
+    dl = torch.from_numpy(rs.randn(B, Sq, H).astype(np.float32))
+    scale = hd ** -0.5
+    plain = _hop_forward_plain(q, k, v, scale, H) + _hop_backward_plain(q, k, v, do, dl, scale, H)
+    if case == "clamp":
+        assert plain[1].max().item() > np.exp(50.0)
+    rounded = _hops_rounded_as_the_bf16_kernels(q, k, v, do, dl, scale, H)
+    for name, got, want in zip(("o_u", "l", "dq", "dk", "dv"), rounded, plain):
+        assert got.shape == want.shape, name
+        assert _rel_err(got.float().numpy(), want.float().numpy()) <= HOP_RTOL["bf16"], name
+
+
+@pytest.mark.parametrize("case", ["normal", "clamp"])
+def test_bf16_kernel_rounding_is_the_pallas_hops_rounding(case):
+    """The bf16 bodies' rounding points are the TPU kernels' (`pc`, `doc`,
+    `duc`): modelled in torch, they agree with the bf16 Pallas hops at least
+    as closely as the fp32 plain versions do."""
+    B, Sq, Sk, H, hd = HOP_SHAPE
+    q, k, v, do, dl = _hop_inputs(case, seed=11)
+    (jq, jk, jv), (tq, tk, tv) = _cast((q, k, v), "bf16")
+    scale = hd ** -0.5
+    want = (_hop_forward(jq, jk, jv, scale, H)
+            + tuple(_hop_backward(jq, jk, jv, jnp.asarray(do), jnp.asarray(dl), scale, H)))
+    tdo, tdl = torch.from_numpy(do), torch.from_numpy(dl)
+    plain = (_hop_forward_plain(tq, tk, tv, scale, H)
+             + _hop_backward_plain(tq, tk, tv, tdo, tdl, scale, H))
+    rounded = _hops_rounded_as_the_bf16_kernels(tq, tk, tv, tdo, tdl, scale, H)
+    for name, r, p, w in zip(("o_u", "l", "dq", "dk", "dv"), rounded, plain, want):
+        r_err = _rel_err(r.float().numpy(), w)
+        assert r_err <= _rel_err(p.float().numpy(), w), name
+        assert r_err <= HOP_RTOL["bf16"], name
+
+
 def _jax_ring(q, k, v, n, scale=None):
     mesh = create_seq_mesh(n)
     fn = lambda a, b, c: jax_ring_attention(a, b, c, axis="seq", scale=scale)

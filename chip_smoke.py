@@ -5,7 +5,8 @@ their plain versions.
                                        # steps; training: DiT-XL/2, batch 32, 10 steps
     python3 chip_smoke.py --steps 250  # the reference sampling step count
     python3 chip_smoke.py --profile out/profile.txt  # also torch.profiler breakdowns of
-                                       # four sampling steps (table to that file), two
+                                       # four sampling steps (table to that file), the fp32
+                                       # decode of 8 latents (out/profile_vae.txt), two
                                        # training steps (out/profile_train.txt), two
                                        # sequence-parallel sampling steps (out/profile_seq.txt)
                                        # and one sequence-parallel gradient step
@@ -26,33 +27,44 @@ nonzero:
                   1024 tokens, at a ragged S and at large logits, with the fused
                   SDPA backward op alone timed beside it (flash attention's in
                   bf16, the memory-efficient one in fp32, given one forward's
-                  output and LSE), and one autograd.grad call timed as earlier
-                  runs timed it, the host's time included.
+                  output and LSE).
  5. fused_update: the fused AdamW + EMA kernel against `_update_math` over the
                   whole DiT-XL/2 parameter tree for 3 steps, with the fused
                   `torch.optim.AdamW` step timed beside it.
  6. model:        full DiT-XL/2 fp32, one forward_with_cfg through the kernel and
                   through the einsum plain version on the card.
- 7. sample:       a small model sampled on the card and on the CPU with the same
+ 7. vae:          the full-width SD-VAE (83.7 M parameters) from a random diffusers
+                  `.bin` through the port's importer: encode moments and decode card
+                  vs CPU in fp32 with TF32 off; then device times of the decode of 8
+                  latents to 256² (fp32, fp32 with TF32, bf16), of 4 to 512² and of
+                  the encode of 8 256² images, each with its FLOPs (counted from the
+                  layer shapes), TFLOP/s, bound and peak memory.
+ 8. sample:       a small model sampled on the card and on the CPU with the same
                   noise must agree; then the sampling main path, the sampler CLI's
                   own functions at full DiT-XL/2 width and depth, with the forward
-                  kernel's launch count checked at exactly depth x steps.
- 8. train:        a small model trained 2 steps on the card and on the CPU with the
+                  kernel's launch count checked at exactly depth x steps, then the
+                  fp32 decode of the 8 latents and the PNG grid.
+ 9. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
+                  VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
+                  forward kernel launches exactly depth x steps x batches times.
+10. extract:      feature extraction's per-batch functions on 16 seeded 256² images:
+                  (1, 4, 32, 32) finite features that the trainer's dataset reads.
+11. train:        a small model trained 2 steps on the card and on the CPU with the
                   same weights and draws must agree; then the training main path,
                   the trainer CLI's own functions at full DiT-XL/2 width and depth
                   (batch 32, bf16, remat), with the launch counts checked at exactly
                   2 x depth x steps (forward, run again by remat) and depth x steps
                   (backward); then the same with --fused-optimizer, one fused-update
                   launch per parameter leaf per step.
- 9. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
+12. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
                   shard, at a ragged Sq != Sk and at logits past the clamp, with its
                   time, the plain version's, the flash attention call's (timed only)
                   and the bound; bf16 rows also time the fp32-core body on the same
                   inputs (parent_ms, dtype code 2, which no wrapper passes).
-10. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
+13. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
                   alone timed beside it, as in kernel_bwd.
-11. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
+14. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
                   on the card against the CPU; the full model's forward against its
                   unsharded forward, fp32 and bf16; DDPM sampling over the sharded
                   forward; the gradient of sum(out^2) against the unsharded model's;
@@ -69,10 +81,12 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -88,13 +102,21 @@ from fast_dit_torch.ops.ring_attention import (  # noqa: E402
     _launch_hop_fwd)
 from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward  # noqa: E402
 from fast_dit_torch import sample as cli  # noqa: E402
+from fast_dit_torch import sample_ddp  # noqa: E402
+from fast_dit_torch.ckpt import load_vae  # noqa: E402
+from fast_dit_torch.data import FeatureDataset, feature_batches  # noqa: E402
+from fast_dit_torch.extract_features import encode_images, feature_dirs, write_features  # noqa: E402
+from fast_dit_torch.models.vae import AttnBlock  # noqa: E402
+from fast_dit_torch.utils.device import tf32  # noqa: E402
+from fast_dit_torch.utils.image import decode_png, save_image  # noqa: E402
 from fast_dit_torch.train import cli as train_cli  # noqa: E402
 from fast_dit_torch.train import create_train_state, make_train_step  # noqa: E402
 from fast_dit_torch.diffusion import create_diffusion  # noqa: E402
 
-# H100 SXM data sheet: HBM bytes/s, dense peak FLOP/s by input type
+# H100 SXM data sheet: HBM bytes/s, dense peak FLOP/s by input type ("tf32":
+# fp32 inputs on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 KERNEL_SHAPES = [(16, 256, 16, 72), (32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64)]
 MAIN_SHAPE = (16, 256, 16, 72)  # DiT-XL/2 256², CFG batch of 8 labels
@@ -125,6 +147,13 @@ RING_CLAMP_SHAPE = (2, 200, 136, 6, 64)  # integer q, k: some logits pass 50, ex
 SEQ_N = 4                      # shards of the ring, the per-card shape of a 4-card ring
 SEQ_SAMPLE_BATCH, SEQ_GRAD_BATCH, SEQ_GRAD_STEPS = 4, 2, 3
 SEQ_SAMPLE_STEPS = 10           # DDPM steps of the sequence-parallel sampling path
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+VAE_CHANNELS = (128, 256, 512, 512)  # the SD kl-f8 VAE (sd-vae-ft-ema / -mse)
+# the VAE card vs CPU, fp32 with TF32 off, relative to the largest output
+VAE_RTOL = 5e-4
+DDP_ARGS = ["--model", "DiT-XL/2", "--ckpt", "random", "--per-proc-batch-size", "8",
+            "--num-fid-samples", "16", "--num-sampling-steps", "10", "--cfg-scale", "1.5"]
+EXTRACT_IMAGES, EXTRACT_BATCH = 16, 8
 
 
 def emit(obj) -> None:
@@ -149,21 +178,19 @@ def spin(ms) -> None:
     torch.cuda._sleep(int(ms * _spin_cycles_per_ms))
 
 
-def cuda_ms(fn, iters=20, warmup=3, behind_spin=True) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls. With
-    `behind_spin` the timed calls are queued behind a spin of the device,
-    twice as long as the host took to issue them, so the events time the
-    device and not the host's own time per call (Python, checks, the
-    allocator), which exceeds the device's for small calls. Without it
-    the events time whichever of the two is slower."""
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of `fn` over `iters` back-to-back calls. The timed
+    calls are queued behind a spin of the device, twice as long as the host
+    took to issue them, so the events time the device and not the host's
+    own time per call (Python, checks, the allocator), which exceeds the
+    device's for small calls."""
     for _ in range(warmup):
         t0 = time.perf_counter()
         fn()
         host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if behind_spin:
-        spin(min(2 * host_ms * iters + 1, 1000))
+    spin(min(2 * host_ms * iters + 1, 1000))
     start.record()
     for _ in range(iters):
         fn()
@@ -335,13 +362,11 @@ def phase_kernel_bwd():
                 raise AssertionError(f"attention backward vs plain at {(B, S, H, hd)} {dtype} "
                                      f"large={large}: max abs err {err} > "
                                      f"{BWD_RTOL[dtype]} x {peak}")
-            # SDPA's backward alone: the fused op, and (as in earlier runs) one
-            # autograd.grad call through the kept graph, which times the host too
+            # SDPA's backward alone: the fused op
             q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
-                       .contiguous().requires_grad_() for i in range(3))
-            o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+                       .contiguous() for i in range(3))
             do_l = dout.view(B, S, H, hd).transpose(1, 2).contiguous()
-            lib, library = sdpa_backward(q.detach(), k.detach(), v.detach(), do_l, scale)
+            lib, library = sdpa_backward(q, k, v, do_l, scale)
             nbytes = 8 * B * S * D * qkv.element_size()
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 10 * B * S * S * D / PEAK_FLOPS[dtype] * 1e3
@@ -352,14 +377,12 @@ def phase_kernel_bwd():
                    "kernel_ms": cuda_ms(lambda: _launch_bwd(qkv, out, dout, lse, H, hd, scale)),
                    "plain_ms": cuda_ms(lambda: _attention_qkv_bwd_plain(qkv, dout, H, scale)),
                    "library_ms": cuda_ms(lib), "library": library,
-                   "library_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
-                       o, (q, k, v), do_l, retain_graph=True), behind_spin=False),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             emit(_ratios(row))
             if (B, S, H, hd) == TRAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
-            del qkv, dout, out, lse, dqkv, ref, q, k, v, o, do_l, lib
+            del qkv, dout, out, lse, dqkv, ref, q, k, v, do_l, lib
     torch.cuda.empty_cache()
     return main
 
@@ -458,7 +481,7 @@ def phase_model():
     del model, outs
 
 
-def phase_sample(steps, profile_table):
+def phase_sample(steps, profile_table, vae_bin):
     # the main path's result against the CPU on a small input: same weights,
     # same noise, kernel on the card vs plain twin on the CPU
     small = []
@@ -482,7 +505,8 @@ def phase_sample(steps, profile_table):
         raise AssertionError(f"small-model sampling card vs CPU: {small_err} > {small_tol}")
 
     args = cli.parse_args(["--model", "DiT-XL/2", "--ckpt", "random", "--bf16",
-                           "--cfg-scale", "4.0", "--num-sampling-steps", str(steps)])
+                           "--cfg-scale", "4.0", "--num-sampling-steps", str(steps),
+                           "--vae-ckpt", vae_bin])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, diffusion = cli.build(args)
@@ -504,10 +528,31 @@ def phase_sample(steps, profile_table):
     if tuple(latents.shape) != (n, 4, 32, 32) or not torch.isfinite(latents).all():
         raise AssertionError(f"bad latents: shape {tuple(latents.shape)}, "
                              f"finite {bool(torch.isfinite(latents).all())}")
+    # the decode, as the CLI does it (fp32, TF32 off), then the 2 x 4 grid
+    t0 = time.perf_counter()
+    vae = cli.build_vae(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    vae_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    images = cli.decode(vae, latents)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if tuple(images.shape) != (n, 3, 256, 256) or not torch.isfinite(images).all():
+        raise AssertionError(f"bad decoded images: shape {tuple(images.shape)}")
+    png = os.path.join(OUT_DIR, "sample.png")
+    save_image(images.cpu().numpy(), png, nrow=4, value_range=(-1, 1))
+    with open(png, "rb") as f:
+        grid = decode_png(f.read())
+    if grid.shape != (2 * 258 + 2, 4 * 258 + 2, 3):
+        raise AssertionError(f"sample.png is {grid.shape}")
     row = {"phase": "sample", "model": "DiT-XL/2", "image_size": 256, "dtype": "bfloat16",
            "cfg_scale": 4.0, "labels": n, "batch": 2 * n, "sampler": "ddpm", "steps": steps,
            "setup_s": build_s, "loop_s": loop_s, "s_per_step": loop_s / steps,
            "images_per_s": n / loop_s, "launches": launches,
+           "vae_setup_s": vae_setup_s, "decode_s": decode_s, "decode_dtype": "float32",
+           "decode_share": decode_s / (loop_s + decode_s),
+           "images_per_s_decoded": n / (loop_s + decode_s), "png": os.path.relpath(png),
+           "images_mean_abs": images.abs().mean().item(),
            "latents_mean_abs": latents.abs().mean().item(),
            "small_check_max_abs_err": small_err, "small_check_tol": small_tol,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -799,13 +844,11 @@ def phase_ring_kernel_bwd():
                     and max(errs.values()) <= RING_RTOL[dtype]):
                 raise AssertionError(f"ring hop backward vs plain at {(B, Sq, Sk, H, hd)} "
                                      f"{dtype} clamp={clamp}: {errs} > {RING_RTOL[dtype]}")
-            # SDPA's backward alone: the fused op, and (as in earlier runs) one
-            # autograd.grad call through the kept graph, which times the host too
+            # SDPA's backward alone: the fused op
             q4, k4, v4 = (t.view(B, t.shape[1], H, hd).transpose(1, 2).contiguous()
-                          .requires_grad_() for t in (q, k, v))
-            o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                          for t in (q, k, v))
             do4 = do.to(dtype).view(B, Sq, H, hd).transpose(1, 2).contiguous()
-            lib, library = sdpa_backward(q4.detach(), k4.detach(), v4.detach(), do4, scale)
+            lib, library = sdpa_backward(q4, k4, v4, do4, scale)
             # read q, k, v and write dq, dk, dv in the input dtype; read do, dl fp32
             nbytes = (2 * (B * Sq * D + 2 * B * Sk * D) * q.element_size()
                       + 4 * (B * Sq * D + B * Sq * H))
@@ -820,8 +863,6 @@ def phase_ring_kernel_bwd():
                    "kernel_ms": cuda_ms(lambda: _launch_hop_bwd(q, k, v, do, dl, scale, H)),
                    "plain_ms": cuda_ms(lambda: _hop_backward_plain(q, k, v, do, dl, scale, H)),
                    "library_ms": cuda_ms(lib), "library": library + " (normalised softmax)",
-                   "library_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
-                       o4, (q4, k4, v4), do4, retain_graph=True), behind_spin=False),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             if dtype == torch.bfloat16:
@@ -829,7 +870,7 @@ def phase_ring_kernel_bwd():
             emit(_ratios(row))
             if (B, Sq, Sk, H, hd) == RING_BWD_SHAPES[0] and dtype == torch.bfloat16 and not clamp:
                 main = row
-            del q, k, v, do, dl, got, want, q4, k4, v4, o4, do4, lib
+            del q, k, v, do, dl, got, want, q4, k4, v4, do4, lib
     torch.cuda.empty_cache()
     return main
 
@@ -1029,23 +1070,301 @@ def phase_seq_parallel(steps, profile_table):
     return sample_launches, grad_launches
 
 
+def random_vae_state_dict(channels=VAE_CHANNELS, latent=4, seed=0):
+    """Random weights in the diffusers AutoencoderKL layout (the names and
+    shapes of sd-vae-ft-*), numpy fp32, from `seed`: the stand-in for the
+    real weights, which are not in the repository. Conv and linear weights
+    are N(0, 1 / fan-in), so activations keep their scale; norm scales
+    1 + 0.1 N(0, 1); biases 0.05 N(0, 1)."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def param(name, *shape, fan_in=None):
+        if fan_in:
+            sd[f"{name}.weight"] = (rs.randn(*shape) / math.sqrt(fan_in)).astype(np.float32)
+        else:
+            sd[f"{name}.weight"] = (1 + 0.1 * rs.randn(*shape)).astype(np.float32)
+        sd[f"{name}.bias"] = (0.05 * rs.randn(shape[0])).astype(np.float32)
+
+    def conv(name, cout, cin, k):
+        param(name, cout, cin, k, k, fan_in=cin * k * k)
+
+    def resnet(name, cin, cout):
+        param(f"{name}.norm1", cin)
+        conv(f"{name}.conv1", cout, cin, 3)
+        param(f"{name}.norm2", cout)
+        conv(f"{name}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{name}.conv_shortcut", cout, cin, 1)
+
+    def mid_block(name, c):
+        resnet(f"{name}.resnets.0", c, c)
+        param(f"{name}.attentions.0.group_norm", c)
+        for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+            param(f"{name}.attentions.0.{proj}", c, c, fan_in=c)
+        resnet(f"{name}.resnets.1", c, c)
+
+    ch = list(channels)
+    conv("encoder.conv_in", ch[0], 3, 3)
+    for i, c in enumerate(ch):
+        for j in range(2):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", ch[max(i - 1, 0)] if j == 0 else c, c)
+        if i < len(ch) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    mid_block("encoder.mid_block", ch[-1])
+    param("encoder.conv_norm_out", ch[-1])
+    conv("encoder.conv_out", 2 * latent, ch[-1], 3)
+    conv("quant_conv", 2 * latent, 2 * latent, 1)
+    conv("post_quant_conv", latent, latent, 1)
+    rev = ch[::-1]
+    conv("decoder.conv_in", rev[0], latent, 3)
+    mid_block("decoder.mid_block", rev[0])
+    for i, c in enumerate(rev):
+        for j in range(3):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", rev[max(i - 1, 0)] if j == 0 else c, c)
+        if i < len(rev) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", c, c, 3)
+    param("decoder.conv_norm_out", rev[-1])
+    conv("decoder.conv_out", 3, rev[-1], 3)
+    return sd
+
+
+def write_random_vae(path, channels=VAE_CHANNELS, seed=0):
+    """`random_vae_state_dict` saved as a diffusers-style `.bin` at `path`."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: torch.from_numpy(v) for k, v in
+                random_vae_state_dict(channels, seed=seed).items()}, path)
+    return path
+
+
+def vae_flops(run, model):
+    """FLOPs of one `run()` of `model`: 2 x the multiply-adds of every
+    convolution and linear and of the two attention products, from the
+    shapes they see (forward hooks)."""
+    total = [0]
+
+    def conv(m, inp, out):
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+
+    def linear(m, inp, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    def attention(m, inp, out):
+        B, C, H, W = inp[0].shape
+        total[0] += 4 * B * (H * W) ** 2 * C
+
+    hooks = []
+    for m in model.modules():
+        hook = (conv if isinstance(m, torch.nn.Conv2d) else
+                linear if isinstance(m, torch.nn.Linear) else
+                attention if isinstance(m, AttnBlock) else None)
+        if hook is not None:
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_vae(vae_bin, profile_table=None):
+    """The full-width SD-VAE from a random diffusers `.bin` through the
+    port's importer: card vs CPU in fp32 with TF32 off, then device times of
+    the decode and the encode at the sampling paths' shapes, each with its
+    counted FLOPs, TFLOP/s, bound and peak memory; with `profile_table`, a
+    device breakdown of the fp32 decode of 8 latents. Returns the fp32 VAE."""
+    t0 = time.perf_counter()
+    vae = load_vae(vae_bin, VAE_CHANNELS, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in vae.parameters())
+    if not 83_000_000 < n_params < 84_000_000:
+        raise AssertionError(f"full-width VAE has {n_params} parameters, not 83.7 M")
+
+    # card vs CPU, fp32, TF32 off
+    cpu_vae = load_vae(vae_bin, VAE_CHANNELS, device="cpu")
+    g = torch.Generator().manual_seed(10)
+    x = torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+    z = torch.randn(2, 4, 8, 8, generator=g)
+    check = {}
+    with torch.inference_mode(), tf32(False):
+        for name, method, inp in (("moments", "encode_moments", x), ("images", "decode", z)):
+            got = getattr(vae, method)(inp.cuda()).cpu()
+            want = getattr(cpu_vae, method)(inp)
+            err, peak = (got - want).abs().max().item(), want.abs().max().item()
+            if not (torch.isfinite(got).all() and err <= VAE_RTOL * peak):
+                raise AssertionError(f"VAE {name} card vs CPU: max abs err {err} > "
+                                     f"{VAE_RTOL} x {peak}")
+            check[name] = {"shape": list(got.shape), "max_abs_err": err, "max_abs_out": peak,
+                           "tol": VAE_RTOL * peak}
+    del cpu_vae
+
+    vae_bf16 = load_vae(vae_bin, VAE_CHANNELS, device="cuda", dtype=torch.bfloat16)
+    gc = torch.Generator(device="cuda").manual_seed(11)
+    z256 = torch.randn(8, 4, 32, 32, generator=gc, device="cuda")
+    z512 = torch.randn(4, 4, 64, 64, generator=gc, device="cuda")
+    x256 = torch.rand(8, 3, 256, 256, generator=gc, device="cuda") * 2 - 1
+    dec_params = sum(p.numel() for m in (vae.post_quant_conv, vae.decoder) for p in m.parameters())
+    enc_params = sum(p.numel() for m in (vae.encoder, vae.quant_conv) for p in m.parameters())
+    cases = [  # name, model, TF32, peak key, method, input, parameters read
+        ("decode_256_fp32", vae, False, torch.float32, "decode", z256, dec_params),
+        ("decode_256_tf32", vae, True, "tf32", "decode", z256, dec_params),
+        ("decode_256_bf16", vae_bf16, False, torch.bfloat16, "decode", z256, dec_params),
+        ("decode_512_fp32", vae, False, torch.float32, "decode", z512, dec_params),
+        ("encode_256_fp32", vae, False, torch.float32, "encode_moments", x256, enc_params),
+    ]
+    runs, exact = [], {}
+    for name, model, use_tf32, peak_key, method, inp, params in cases:
+        fn = lambda: getattr(model, method)(inp)
+        with torch.inference_mode(), tf32(use_tf32):
+            flops = vae_flops(lambda: getattr(model, method)(inp[:1]), model) * inp.shape[0]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            peak_mem = torch.cuda.max_memory_allocated()
+            ms = cuda_ms(fn, iters=3, warmup=1)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"VAE {name}: non-finite output")
+        # read the input and the fp32 parameters once, write the fp32 output once
+        t_bytes = 4 * (inp.numel() + out.numel() + params) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[peak_key] * 1e3
+        bound = max(t_bytes, t_ops)
+        row = {"name": name, "batch": inp.shape[0], "in_shape": list(inp.shape),
+               "out_shape": list(out.shape), "dtype": _dtype_name(model.dtype), "tf32": use_tf32,
+               "ms": ms, "s_per_image": ms / 1e3 / inp.shape[0],
+               "gflop_per_image": flops / inp.shape[0] / 1e9, "tflops": flops / ms / 1e9,
+               "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "peak_tflops": (PEAK_FLOPS[peak_key] / 1e12), "x_bound": ms / bound,
+               "peak_mem_gib": peak_mem / 2 ** 30,
+               "activation_peak_gib": (peak_mem - before) / 2 ** 30}
+        key = (method, tuple(inp.shape))
+        if key in exact:  # TF32 and bf16 against the fp32 exact output, reported
+            ref = exact[key]
+            row["max_abs_err_vs_fp32"] = (out - ref).abs().max().item()
+            row["max_abs_fp32"] = ref.abs().max().item()
+        else:
+            exact[key] = out
+        runs.append(row)
+        del out
+    row = {"phase": "vae", "block_out_channels": list(VAE_CHANNELS), "params": n_params,
+           "load_s": load_s, "check": check, "tol_rel": VAE_RTOL, "runs": runs}
+    if profile_table:
+        with torch.inference_mode(), tf32(False):
+            row["profile"] = profile_device(lambda: vae.decode(z256), profile_table,
+                                            "fp32 decode of 8 latents to 256²")
+    emit(row)
+    del vae_bf16, exact, z256, z512, x256
+    torch.cuda.empty_cache()
+    return vae
+
+
+def phase_sample_ddp(vae_bin):
+    """The FID harness's own `main` at full width: DiT-XL/2 256², the random
+    VAE, 16 images in 2 batches of 8, 10 DDPM steps, CFG 1.5, `--tf32` at
+    its default (on); the npz must equal the PNGs read back, and the
+    attention forward must launch exactly depth x steps x batches times."""
+    args = sample_ddp.build_parser().parse_args(
+        DDP_ARGS + ["--vae-ckpt", vae_bin, "--sample-dir", os.path.join(OUT_DIR, "samples")])
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sample_ddp.main(args)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    batches = args.num_fid_samples // args.per_proc_batch_size
+    depth = DiT_models[args.model].keywords["depth"]
+    want = {**{k: 0 for k in launches},
+            "attention_fwd": depth * args.num_sampling_steps * batches}
+    if launches != want:
+        raise AssertionError(f"sample_ddp launches {launches}, expected {want}")
+    arr = np.load(res["npz"])["arr_0"]
+    if arr.shape != (args.num_fid_samples, 256, 256, 3) or arr.dtype != np.uint8:
+        raise AssertionError(f"sample_ddp npz arr_0 is {arr.shape} {arr.dtype}")
+    pngs = []
+    for i in range(args.num_fid_samples):
+        with open(f"{res['sample_dir']}/{i:06d}.png", "rb") as f:
+            pngs.append(decode_png(f.read()))
+    if not np.array_equal(arr, np.stack(pngs)):
+        raise AssertionError("sample_ddp npz differs from its PNGs")
+    emit({"phase": "sample_ddp", "model": args.model, "image_size": args.image_size,
+          "dtype": "float32", "tf32": args.tf32, "cfg_scale": args.cfg_scale,
+          "steps": args.num_sampling_steps, "per_proc_batch": args.per_proc_batch_size,
+          "images": res["images"], "loop_s": res["seconds"], "total_s": total_s,
+          "images_per_s": res["images"] / res["seconds"], "launches": launches,
+          "npz_shape": list(arr.shape), "pixel_mean": float(arr.mean()),
+          "pixel_std": float(arr.std()),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_extract(vae):
+    """Feature extraction's per-batch work (`encode_images`, `write_features`)
+    on 16 seeded 256² images in [-1, 1], fp32 with TF32 off: the features
+    must be (1, 4, 32, 32), finite, and read back by the trainer's
+    `FeatureDataset`."""
+    feat_dir, label_dir = feature_dirs(os.path.join(OUT_DIR, "features"), 256)
+    os.makedirs(feat_dir)
+    os.makedirs(label_dir)
+    gx = torch.Generator().manual_seed(13)
+    x = torch.rand(EXTRACT_IMAGES, 3, 256, 256, generator=gx) * 2 - 1
+    labels = torch.randint(0, 1000, (EXTRACT_IMAGES,), generator=gx).tolist()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, EXTRACT_IMAGES, EXTRACT_BATCH):
+        idx = list(range(s, s + EXTRACT_BATCH))
+        write_features(feat_dir, label_dir, idx, encode_images(vae, x[s:s + EXTRACT_BATCH], g),
+                       labels[s:s + EXTRACT_BATCH])
+    seconds = time.perf_counter() - t0
+    ds = FeatureDataset(feat_dir, label_dir)
+    feats = [ds[i] for i in range(len(ds))]
+    if len(ds) != EXTRACT_IMAGES or not all(f.shape == (1, 4, 32, 32) and np.isfinite(f).all()
+                                            for f, _ in feats):
+        raise AssertionError(f"extracted features: {len(ds)} files, shapes "
+                             f"{sorted({f.shape for f, _ in feats})}")
+    batches = list(feature_batches(ds, EXTRACT_BATCH, seed=0, num_epochs=1))
+    if [b["x"].shape for b in batches] != [(EXTRACT_BATCH, 4, 32, 32)] * 2:
+        raise AssertionError(f"feature_batches gave {[b['x'].shape for b in batches]}")
+    emit({"phase": "extract", "images": EXTRACT_IMAGES, "batch": EXTRACT_BATCH,
+          "image_size": 256, "dtype": "float32", "tf32": False, "seconds": seconds,
+          "images_per_s": EXTRACT_IMAGES / seconds,
+          "feature_std": float(np.std([f for f, _ in feats]))})
+
+
 def main():
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one card.")
     ap.add_argument("--steps", type=int, default=50, help="DDPM steps of the sampling path")
     ap.add_argument("--profile", metavar="TABLE", default=None,
-                    help="profile four sampling steps, two training steps, two "
-                         "sequence-parallel sampling steps and one sequence-parallel "
-                         "gradient step; write the kernel tables to TABLE and TABLE's "
-                         "name + _train, + _seq and + _seq_grad")
+                    help="profile four sampling steps, the fp32 decode of 8 latents, two "
+                         "training steps, two sequence-parallel sampling steps and one "
+                         "sequence-parallel gradient step; write the kernel tables to TABLE "
+                         "and TABLE's name + _vae, + _train, + _seq and + _seq_grad")
     a = ap.parse_args()
 
     smi = phase_device()
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    vae_bin = write_random_vae(os.path.join(OUT_DIR, "vae_random.bin"))
     phase_build()
     fwd = phase_kernel()
     bwd = phase_kernel_bwd()
     fused = phase_fused_update()
     phase_model()
-    sample_launches = phase_sample(a.steps, a.profile)
+    vae_table = None
+    if a.profile:
+        root, ext = os.path.splitext(a.profile)
+        vae_table = f"{root}_vae{ext}"
+    vae = phase_vae(vae_bin, vae_table)
+    sample_launches = phase_sample(a.steps, a.profile, vae_bin)
+    ddp_launches = phase_sample_ddp(vae_bin)
+    phase_extract(vae)
+    del vae
+    torch.cuda.empty_cache()
     train_launches, fused_launches = phase_train(a.profile)
     ring_fwd = phase_ring_kernel()
     ring_bwd = phase_ring_kernel_bwd()
@@ -1054,7 +1373,8 @@ def main():
         root, ext = os.path.splitext(a.profile)
         seq_table = f"{root}_seq{ext}"
     seq_sample_launches, seq_grad_launches = phase_seq_parallel(SEQ_SAMPLE_STEPS, seq_table)
-    by_path = {k: {"sample": sample_launches.get(k, 0), "train": train_launches.get(k, 0),
+    by_path = {k: {"sample": sample_launches.get(k, 0), "sample_ddp": ddp_launches.get(k, 0),
+                   "train": train_launches.get(k, 0),
                    "train_fused_optimizer": fused_launches.get(k, 0),
                    "seq_sample": seq_sample_launches[k], "seq_grad": seq_grad_launches[k]}
                for k in _build.launch_counts}

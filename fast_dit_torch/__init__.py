@@ -11,7 +11,15 @@ more hand-written CUDA kernels, the attention backward
 (`csrc/fused_update.cu`). Slice 3 covers sequence parallelism
 (`parallel/sequence.py`): ring attention over sharded tokens
 (`ops/ring_attention.py`) with the hand-written CUDA ring hop forward and
-backward (`csrc/ring_hop_fwd.cu`, `csrc/ring_hop_bwd.cu`).
+backward (`csrc/ring_hop_fwd.cu`, `csrc/ring_hop_bwd.cu`). Slice 6 covers
+the pixel-space ends: the SD-VAE (`models/vae.py`, diffusers' names, stock
+convolutions, GroupNorm and attention: the JAX VAE has no Pallas kernel)
+with its local weight import (`ckpt/vae_import.py`, `.bin` or
+`.safetensors` without the `safetensors` package), the decode in
+`python -m fast_dit_torch.sample`, the FID harness `python -m
+fast_dit_torch.sample_ddp` (rank-strided PNGs and the `arr_0` npz, read
+back by the Pillow-free `utils.image.decode_png`), the image-folder
+pipeline (`data/imagenet.py`) and `python -m fast_dit_torch.extract_features`.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Model layer: the dense DiT backbones and their registry."""
+"""Model layer: the dense DiT backbones and their registry, and the SD-VAE."""
 
 from .dit import REMAT_POLICIES, DiT, DiT_models, dit_config
 from .layers import (
@@ -12,6 +12,8 @@ from .layers import (
     modulate,
 )
 from .pos_embed import get_2d_sincos_pos_embed
+from .vae import (VAE_SCALE, AutoencoderKL, DiagonalGaussian, decode_from_latents,
+                  encode_to_latents)
 
 __all__ = [
     "DiT",
@@ -27,4 +29,9 @@ __all__ = [
     "TimestepEmbedder",
     "modulate",
     "get_2d_sincos_pos_embed",
+    "AutoencoderKL",
+    "DiagonalGaussian",
+    "VAE_SCALE",
+    "encode_to_latents",
+    "decode_from_latents",
 ]

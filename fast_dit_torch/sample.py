@@ -1,14 +1,17 @@
-"""Sample latents from a DiT: the port's single-device sampler CLI.
+"""Sample images from a DiT: the port's single-device sampler CLI.
 
-    python -m fast_dit_torch.sample --model DiT-XL/2 --ckpt random --bf16
+    python -m fast_dit_torch.sample --model DiT-XL/2 --ckpt random --bf16 --vae-ckpt VAE
 
 Counterpart of the repository's `sample.py`: fixed seed, registry model,
 `create_diffusion(str(steps))`, the CFG doubled batch ([z; z] with labels
 [y; null]), `p_sample_loop` (or `ddim_sample_loop`) over `forward_with_cfg`
-with `clip_denoised=False`, then the conditional half is kept. The port has
-no VAE yet, so it saves the latents to `sample.npy` and a latent preview to
-`sample.png` in the working directory, as `sample.py` does without VAE
-weights.
+with `clip_denoised=False`, then the conditional half is kept, decoded by
+the SD-VAE at /0.18215 and saved as a 2 x 4 grid, `sample.png`, in the
+working directory. The VAE weights are local diffusers files: `--vae-ckpt`,
+else `SD_VAE_PATH`, else `pretrained_models/sd-vae-ft-{--vae}`. Without
+them the latents go to `sample.npy` and a latent preview to `sample.png`,
+as `sample.py` does. The decode is fp32 with TF32 off, as the JAX VAE
+computes.
 
 Weights: a local reference-format `.pt` (`--ckpt PATH`; nothing is ever
 downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
@@ -26,11 +29,11 @@ import os
 import numpy as np
 import torch
 
-from .ckpt import load_torch_checkpoint
+from .ckpt import load_torch_checkpoint, load_vae, resolve_vae_path
 from .diffusion import create_diffusion
-from .models import DiT_models
+from .models import DiT_models, decode_from_latents
 from .ops.attention import BACKENDS
-from .utils.device import resolve_device
+from .utils.device import resolve_device, tf32
 from .utils.image import save_image
 
 # the reference demo's labels
@@ -48,13 +51,14 @@ def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
                 p.add_(std * torch.randn(p.shape, generator=g).to(p.device))
 
 
-def build(args):
-    """(model, diffusion) on `args.device`, weights loaded."""
-    device = resolve_device(args.device)
+def build_model(args, device, seed):
+    """The DiT of `args` (--model, --image-size, --num-classes, --bf16,
+    --attn-backend, --ckpt) on `device`, in eval mode, weights loaded;
+    `--ckpt random` is the init from `seed` plus `perturb_`."""
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        attn_backend=args.attn_backend, device=device, seed=args.seed)
+        attn_backend=args.attn_backend, device=device, seed=seed)
     if args.ckpt == "random":
         perturb_(model)
     else:
@@ -64,9 +68,32 @@ def build(args):
                 f"no checkpoint at {path!r}: the port loads local reference .pt "
                 f"files only and never downloads; pass --ckpt PATH or --ckpt random")
         model.load_state_dict(load_torch_checkpoint(path), strict=True)
-    model.eval()
+    return model.eval()
+
+
+def build(args):
+    """(model, diffusion) on `args.device`, weights loaded."""
+    device = resolve_device(args.device)
+    model = build_model(args, device, args.seed)
     diffusion = create_diffusion(str(args.num_sampling_steps), device=device)
     return model, diffusion
+
+
+def build_vae(args, device, block_out_channels=None):
+    """The fp32 SD-VAE on `device` from the local weights (at the widths
+    they hold, or at `block_out_channels`), or None when there are none."""
+    path = resolve_vae_path(args.vae_ckpt, args.vae)
+    if not os.path.exists(path):
+        return None
+    return load_vae(path, block_out_channels, device=device)
+
+
+@torch.inference_mode()
+def decode(vae, latents: torch.Tensor) -> torch.Tensor:
+    """Scaled latents -> fp32 images in about [-1, 1]: decode(z / 0.18215),
+    with TF32 off whatever the caller's setting, as the JAX VAE computes."""
+    with tf32(False):
+        return decode_from_latents(vae, latents.to(next(vae.parameters()).device))
 
 
 @torch.inference_mode()
@@ -96,13 +123,21 @@ def main(args) -> None:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"fast_dit_torch.sample: {e}") from None
-    model, diffusion = build(args)
-    out = sample_latents(args, model, diffusion).cpu().numpy()
+    with tf32(False):
+        model, diffusion = build(args)
+        vae = build_vae(args, model.pos_embed.device)
+        latents = sample_latents(args, model, diffusion)
+        images = None if vae is None else decode(vae, latents).cpu().numpy()
+    if images is not None:
+        save_image(images, "sample.png", nrow=4, value_range=(-1, 1))
+        print("Saved sample.png")
+        return
+    out = latents.cpu().numpy()
     np.save("sample.npy", out)
     save_image(out[:, :3], "sample.png", nrow=4,
                value_range=(float(out.min()), float(out.max())))
-    print("No VAE in the port yet: saved raw latents to sample.npy and a latent "
-          "preview to sample.png")
+    print("No VAE weights found (set --vae-ckpt or SD_VAE_PATH); "
+          "saved raw latents to sample.npy and a latent preview to sample.png")
 
 
 def parse_args(argv=None):
@@ -110,8 +145,7 @@ def parse_args(argv=None):
     # reference-compatible flags
     parser.add_argument("--model", type=str, choices=list(DiT_models), default="DiT-XL/2")
     parser.add_argument("--vae", type=str, choices=["ema", "mse"], default="mse",
-                        help="SD-VAE variant of the reference; the port has no "
-                             "VAE decode yet and saves latents")
+                        help="SD-VAE variant: names pretrained_models/sd-vae-ft-{vae}")
     parser.add_argument("--image-size", type=int, choices=[256, 512], default=256)
     parser.add_argument("--num-classes", type=int, default=1000)
     parser.add_argument("--cfg-scale", type=float, default=4.0)
@@ -119,6 +153,8 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt", type=str, default=None,
                         help="local reference .pt checkpoint, or 'random'")
+    parser.add_argument("--vae-ckpt", type=str, default=None,
+                        help="local diffusers-format SD-VAE weights (file or directory)")
     # the port's own
     parser.add_argument("--attn-backend", type=str, default="auto", choices=BACKENDS,
                         help="auto: the CUDA kernel on the card; einsum: the plain twin")

@@ -7,6 +7,7 @@ configuration in conftest.py:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -309,3 +310,96 @@ def test_a_failed_build_raises(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for broken.cu"):
         _build.load("broken")
     assert "broken" not in _build._libs
+
+
+# ---------------------------------------------------------------------------
+# the SD-VAE and the decoded samplers (no kernel of their own: convolutions,
+# GroupNorm and the mid-block attention are stock torch ops; the samplers'
+# DiT launches the attention forward)
+# ---------------------------------------------------------------------------
+
+VAE_RTOL = 5e-4  # card vs CPU, fp32, TF32 off, relative to max |out|
+
+
+def _vae_bin(tmp_path, channels):
+    import chip_smoke
+
+    return chip_smoke.write_random_vae(str(tmp_path / "vae.bin"), channels)
+
+
+def _tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("channels,size", [((32, 64), 32), ((128, 256, 512, 512), 64)],
+                         ids=["small", "full"])
+def test_vae_card_matches_cpu(cuda, tmp_path, channels, size):
+    from fast_dit_torch.ckpt import load_vae
+    from fast_dit_torch.utils.device import tf32
+
+    path = _vae_bin(tmp_path, channels)
+    g = torch.Generator().manual_seed(0)
+    f = 2 ** (len(channels) - 1)
+    x = torch.rand(2, 3, size, size, generator=g) * 2 - 1
+    z = torch.randn(2, 4, size // f, size // f, generator=g)
+    card, cpu = load_vae(path, channels, device=cuda), load_vae(path, channels, device="cpu")
+    before = _tf32_flags()
+    with torch.inference_mode(), tf32(False):
+        assert _tf32_flags() == (False, False)
+        for method, inp in (("encode_moments", x), ("decode", z)):
+            got = getattr(card, method)(inp.to(cuda)).cpu()
+            want = getattr(cpu, method)(inp)
+            assert got.shape == want.shape and torch.isfinite(got).all()
+            assert (got - want).abs().max() <= VAE_RTOL * want.abs().max()
+    assert _tf32_flags() == before
+
+
+def test_decoded_sampler_on_the_card(cuda, tmp_path, monkeypatch):
+    """`python -m fast_dit_torch.sample` with a VAE on a small model: one
+    forward launch per block per step, the card's decode of the latents
+    agrees with the CPU's, and the CLI writes the grid."""
+    from fast_dit_torch import sample as cli
+    from fast_dit_torch.utils.image import decode_png
+
+    path = _vae_bin(tmp_path, (32, 64))
+    flags = ["--ckpt", "random", "--model", "DiT-S/2", "--num-sampling-steps", "4",
+             "--vae-ckpt", path]
+    args = cli.parse_args(flags)
+    model, diffusion = cli.build(args)
+    _build.reset_launch_counts()
+    latents = cli.sample_latents(args, model, diffusion)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["attention_fwd"] == model.depth * 4
+    got = cli.decode(cli.build_vae(args, cuda), latents).cpu()
+    cpu = torch.device("cpu")
+    want = cli.decode(cli.build_vae(cli.parse_args(flags + ["--device", "cpu"]), cpu),
+                      latents.cpu())
+    assert got.shape == (8, 3, 64, 64) and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= VAE_RTOL * want.abs().max()
+    monkeypatch.chdir(tmp_path)
+    cli.main(args)
+    grid = decode_png((tmp_path / "sample.png").read_bytes())
+    assert grid.shape == (2 * 66 + 2, 4 * 66 + 2, 3)
+
+
+def test_sample_ddp_on_the_card(cuda, tmp_path):
+    """The FID harness on a small model: launches exact, the npz equals the
+    PNGs, and the TF32 flags are restored after `--tf32`."""
+    from fast_dit_torch import sample_ddp
+    from fast_dit_torch.utils.image import decode_png
+
+    path = _vae_bin(tmp_path, (32, 64))
+    args = sample_ddp.build_parser().parse_args([
+        "--ckpt", "random", "--model", "DiT-S/2", "--num-sampling-steps", "3",
+        "--vae-ckpt", path, "--vae-channels", "32,64", "--per-proc-batch-size", "4",
+        "--num-fid-samples", "6", "--sample-dir", str(tmp_path / "samples")])
+    before = _tf32_flags()
+    _build.reset_launch_counts()
+    res = sample_ddp.main(args)
+    assert _build.launch_counts["attention_fwd"] == 12 * 3 * 2  # depth x steps x batches
+    assert _tf32_flags() == before
+    arr = np.load(res["npz"])["arr_0"]
+    assert arr.shape == (6, 64, 64, 3) and arr.dtype == np.uint8 and arr.std() > 0
+    for i in range(6):
+        with open(f"{res['sample_dir']}/{i:06d}.png", "rb") as f:
+            assert np.array_equal(decode_png(f.read()), arr[i])

@@ -41,7 +41,10 @@ def test_port_sources_exist():
                  "fast_dit_torch/train/cli.py", "fast_dit_torch/train/train_lib.py",
                  "fast_dit_torch/train/mixed_precision.py", "fast_dit_torch/data/features.py",
                  "fast_dit_torch/utils/logging.py", "fast_dit_torch/ops/ring_attention.py",
-                 "fast_dit_torch/parallel/__init__.py", "fast_dit_torch/parallel/sequence.py"):
+                 "fast_dit_torch/parallel/__init__.py", "fast_dit_torch/parallel/sequence.py",
+                 "fast_dit_torch/models/vae.py", "fast_dit_torch/ckpt/vae_import.py",
+                 "fast_dit_torch/data/imagenet.py", "fast_dit_torch/extract_features.py",
+                 "fast_dit_torch/sample_ddp.py"):
         assert must in rel
 
 
@@ -67,3 +70,24 @@ def test_package_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 28  # every module of the package was imported
+
+
+def test_package_imports_without_pillow_or_safetensors():
+    """The card's machine has neither: every module of the package, and
+    chip_smoke.py, import with both blocked (Pillow is imported only inside
+    the functions that decode images)."""
+    blocked = ["PIL", "safetensors", *sorted(FORBIDDEN)]
+    code = (
+        "import sys, pkgutil, importlib\n"
+        f"for m in {blocked!r}: sys.modules[m] = None\n"
+        "import fast_dit_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(fast_dit_torch.__path__, 'fast_dit_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 33

@@ -10,7 +10,8 @@ their plain versions.
                                        # training steps (out/profile_train.txt), two
                                        # sequence-parallel sampling steps (out/profile_seq.txt)
                                        # and one sequence-parallel gradient step
-                                       # (out/profile_seq_grad.txt)
+                                       # (out/profile_seq_grad.txt), and each fast-sampler
+                                       # chain (out/profile_<chain>.txt: _dpm, ...)
 
 Phases, one JSON line each or more; any failure raises and the exit code is
 nonzero:
@@ -44,27 +45,41 @@ nonzero:
                   own functions at full DiT-XL/2 width and depth, with the forward
                   kernel's launch count checked at exactly depth x steps, then the
                   fp32 decode of the 8 latents and the PNG grid.
- 9. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
+ 9. samplers:     the fast samplers at the sampling path's width (DiT-XL/2 256², bf16,
+                  CFG 4.0, 8 labels): DPM-Solver++ at 20 steps, UniPC at 10 with Karras
+                  spacing, DDPM at 50 with the guidance interval [0.28, 5.42], and a
+                  flow model (learn_sigma=False) with Euler at 20 and Heun at 10, each
+                  chain run through the sampler CLI's functions under
+                  torch.cuda.set_sync_debug_mode("error") (no host sync in a step),
+                  with s/step, images/s, model evaluations, kernel-1 launches exactly
+                  depth x evaluations and, for the interval, the guided steps exactly
+                  `guided_steps_korder`'s; the DPM chain also through `sample_latents`
+                  and the fp32 decode; and first each new loop on a small fp32 model,
+                  card against CPU.
+10. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
                   VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
                   forward kernel launches exactly depth x steps x batches times.
-10. extract:      feature extraction's per-batch functions on 16 seeded 256² images:
+11. extract:      feature extraction's per-batch functions on 16 seeded 256² images:
                   (1, 4, 32, 32) finite features that the trainer's dataset reads.
-11. train:        a small model trained 2 steps on the card and on the CPU with the
-                  same weights and draws must agree; then the training main path,
-                  the trainer CLI's own functions at full DiT-XL/2 width and depth
-                  (batch 32, bf16, remat), with the launch counts checked at exactly
-                  2 x depth x steps (forward, run again by remat) and depth x steps
-                  (backward); then the same with --fused-optimizer, one fused-update
-                  launch per parameter leaf per step.
-12. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
+12. train:        a small model trained 2 steps on the card and on the CPU with the
+                  same weights and draws must agree, with the eps and the flow
+                  objective; then the training main path, the trainer CLI's own
+                  functions at full DiT-XL/2 width and depth (batch 32, bf16, remat),
+                  with the launch counts checked at exactly 2 x depth x steps
+                  (forward, run again by remat) and depth x steps (backward); then
+                  the same with --fused-optimizer, one fused-update launch per
+                  parameter leaf per step, with --objective flow and with
+                  --schedule-sampler loss-second-moment, these two under
+                  torch.cuda.set_sync_debug_mode("error") (no host sync in a step).
+13. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
                   shard, at a ragged Sq != Sk and at logits past the clamp, with its
                   time, the plain version's, the flash attention call's (timed only)
                   and the bound; bf16 rows also time the fp32-core body on the same
                   inputs (parent_ms, dtype code 2, which no wrapper passes).
-13. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
+14. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
                   alone timed beside it, as in kernel_bwd.
-14. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
+15. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
                   on the card against the CPU; the full model's forward against its
                   unsharded forward, fp32 and bf16; DDPM sampling over the sharded
                   forward; the gradient of sum(out^2) against the unsharded model's;
@@ -77,6 +92,7 @@ a spin of the device, so the host's time per call does not show in them.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -111,14 +127,17 @@ from fast_dit_torch.utils.device import tf32  # noqa: E402
 from fast_dit_torch.utils.image import decode_png, save_image  # noqa: E402
 from fast_dit_torch.train import cli as train_cli  # noqa: E402
 from fast_dit_torch.train import create_train_state, make_train_step  # noqa: E402
-from fast_dit_torch.diffusion import create_diffusion  # noqa: E402
+from fast_dit_torch.diffusion import (create_diffusion, flow_sample_loop,  # noqa: E402
+                                      guidance_interval_fn, guided_steps_korder)
 
 # H100 SXM data sheet: HBM bytes/s, dense peak FLOP/s by input type ("tf32":
 # fp32 inputs on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-KERNEL_SHAPES = [(16, 256, 16, 72), (32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64)]
+# (8, 256, ...): the conditional half alone, an unguided step of the guidance interval
+KERNEL_SHAPES = [(16, 256, 16, 72), (8, 256, 16, 72), (32, 256, 16, 72), (16, 1024, 16, 72),
+                 (2, 200, 6, 64)]
 MAIN_SHAPE = (16, 256, 16, 72)  # DiT-XL/2 256², CFG batch of 8 labels
 # the backward against its plain version, relative to max |dqkv|: fp32, sums
 # of up to 1024 fp32 terms taken in other orders; bf16, one bf16 rounding of
@@ -154,6 +173,19 @@ VAE_RTOL = 5e-4
 DDP_ARGS = ["--model", "DiT-XL/2", "--ckpt", "random", "--per-proc-batch-size", "8",
             "--num-fid-samples", "16", "--num-sampling-steps", "10", "--cfg-scale", "1.5"]
 EXTRACT_IMAGES, EXTRACT_BATCH = 16, 8
+SAMPLER_ARGS = ["--model", "DiT-XL/2", "--ckpt", "random", "--bf16", "--cfg-scale", "4.0"]
+CFG_INTERVAL = (0.28, 5.42)
+# (name, the sampler CLI's flags, model evaluations of the chain)
+SAMPLER_CHAINS = [
+    ("dpm", ["--sampler", "dpm", "--num-sampling-steps", "20"], 20),
+    ("unipc_karras", ["--sampler", "unipc", "--num-sampling-steps", "10",
+                      "--time-spacing", "karras"], 10),
+    ("ddpm_interval", ["--sampler", "ddpm", "--num-sampling-steps", "50", "--cfg-interval",
+                       *map(str, CFG_INTERVAL)], 50),
+    ("flow_euler", ["--sampler", "euler", "--num-sampling-steps", "20"], 20),
+    ("flow_heun", ["--sampler", "heun", "--num-sampling-steps", "10"], 20),  # 2 per step
+]
+FLOW_TRAIN_STEPS = LSM_TRAIN_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -561,7 +593,7 @@ def phase_sample(steps, profile_table, vae_bin):
         row["profile"] = profile_device(lambda: cli.sample_latents(args, model, diffusion4),
                                         profile_table, "4 sampling steps")
     emit(row)
-    return launches
+    return launches, model
 
 
 def profile_device(run, table_path, what):
@@ -600,23 +632,182 @@ def profile_device(run, table_path, what):
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": c} for us, k, c in rows[:12]]}
 
 
-def _small_train_check(steps=2):
+def _sampler_small_checks():
+    """Each new loop on a small fp32 model (DiT-S/2, depth 2, 8² latents,
+    CFG 4.0), on the card (kernel 1) and on the CPU (its plain version),
+    with the same weights and noise: the final latents agree within 1e-4 of
+    max, the limit of phase `sample`'s small check."""
+    g = torch.Generator().manual_seed(14)
+    noise = torch.randn(4, 4, 8, 8, generator=g)
+    noise = torch.cat([noise[:2], noise[:2]])
+    step_noise = torch.randn(10, 4, 4, 8, 8, generator=g)
+    x0 = torch.randn(4, 4, 8, 8, generator=g).clamp(-1, 1)
+    y = [1, 7, 1000, 1000]
+    cases = {  # name: (learn_sigma, respacing, run(diffusion, cfg_fn, cond_fn, model))
+        "dpm": (True, "6", lambda d, cfg, cond, m, dev: d.dpm_solver_sample_loop(
+            cfg, noise.shape, noise=noise.to(dev), clip_denoised=False)),
+        "unipc_karras": (True, "karras6", lambda d, cfg, cond, m, dev: d.unipc_sample_loop(
+            cfg, noise.shape, noise=noise.to(dev), clip_denoised=False)),
+        "ddpm_interval": (True, "10", lambda d, cfg, cond, m, dev: d.p_sample_loop(
+            guidance_interval_fn(cfg, cond, d.schedule, *CFG_INTERVAL), noise.shape,
+            noise=noise.to(dev), step_noise=step_noise.to(dev), clip_denoised=False)),
+        "ddim_reverse": (True, "6", lambda d, cfg, cond, m, dev: d.ddim_reverse_sample_loop(
+            cfg, x0.to(dev))),
+        "flow_euler": (False, "6", lambda d, cfg, cond, m, dev: flow_sample_loop(
+            cfg, noise.shape, num_steps=6, method="euler", noise=noise.to(dev))),
+        "flow_heun": (False, "4", lambda d, cfg, cond, m, dev: flow_sample_loop(
+            cfg, noise.shape, num_steps=4, method="heun", noise=noise.to(dev))),
+    }
+    res = {}
+    for name, (learn_sigma, respacing, run) in cases.items():
+        outs = []
+        for device in ("cuda", "cpu"):
+            model = DiT_models["DiT-S/2"](input_size=8, depth=2, learn_sigma=learn_sigma,
+                                          device=device, seed=0)
+            cli.perturb_(model)
+            d = create_diffusion(respacing, device=device)
+            yy = torch.tensor(y, device=device)
+            kw = {} if learn_sigma else {"guidance_channels": 4}
+            cfg = lambda x, t: model.forward_with_cfg(x, t, yy, 4.0, **kw)
+            cond = lambda x, t: model(x, t, yy[:2])
+            with torch.inference_mode():
+                outs.append(run(d, cfg, cond, model, device).cpu())
+        err, peak = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
+        if not (torch.isfinite(outs[0]).all() and err <= 1e-4 * peak):
+            raise AssertionError(f"small-model {name} card vs CPU: {err} > 1e-4 x {peak}")
+        res[name] = {"max_abs_err": err, "max_abs_out": peak, "tol": 1e-4 * peak}
+    return res
+
+
+def _sampler_chain(args, model, diffusion, evals, profile_table=None):
+    """One chain of the sampler CLI's functions (`sampling_inputs`,
+    `make_model_fn`, `run_chain`) with the launch counts set to 0 just
+    before and read just after, under sync debug mode "error": a step that
+    waits for the device raises. Model calls are counted by batch: 16 is
+    a guided (CFG) call, 8 the conditional half alone."""
+    z, y, g = cli.sampling_inputs(args, model)
+    fn = cli.make_model_fn(args, model, diffusion, y)
+    calls = collections.Counter()
+    hook = model.register_forward_pre_hook(lambda m, a: calls.update([a[0].shape[0]]))
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                latents = cli.run_chain(args, diffusion, fn, z, g)[:len(cli.CLASS_LABELS)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    launches = dict(_build.launch_counts)
+    want = {**{k: 0 for k in launches}, "attention_fwd": model.depth * evals}
+    if launches != want:
+        raise AssertionError(f"{args.sampler} chain launches {launches}, expected {want}")
+    n = len(cli.CLASS_LABELS)
+    if tuple(latents.shape) != (n, 4, 32, 32) or not torch.isfinite(latents).all():
+        raise AssertionError(f"{args.sampler} chain: bad latents {tuple(latents.shape)}")
+    if sum(calls.values()) != evals:
+        raise AssertionError(f"{args.sampler} chain made {dict(calls)} model calls, "
+                             f"expected {evals}")
+    steps = args.num_sampling_steps
+    row = {"sampler": args.sampler, "steps": steps, "time_spacing": args.time_spacing,
+           "cfg_interval": args.cfg_interval, "model_evals": evals, "loop_s": loop_s,
+           "s_per_step": loop_s / steps, "s_per_eval": loop_s / evals,
+           "images_per_s": n / loop_s, "guided_calls": calls[2 * n],
+           "conditional_only_calls": calls[n], "launches": launches,
+           "sync_debug_mode": "error", "latents_mean_abs": latents.abs().mean().item()}
+    if profile_table:
+        def run():
+            with torch.inference_mode():
+                cli.run_chain(args, diffusion, fn, z, g)
+        row["profile"] = profile_device(run, profile_table, f"{args.sampler} chain, {steps} steps")
+    return row, launches
+
+
+def phase_samplers(profile_table, vae_bin, models):
+    """The fast samplers at the sampling path's width: see the module's
+    docstring, item 9. `models` holds phase `sample`'s DiT, built from the
+    same flags; it is taken out, so that it is freed where the flow chains
+    build their own. Returns {chain name: launches}."""
+    small = _sampler_small_checks()
+    chains, launches, decode = {}, {}, None
+    model = models.pop()
+    root, ext = os.path.splitext(profile_table) if profile_table else (None, None)
+    for name, flags, evals in SAMPLER_CHAINS:
+        args = cli.parse_args(SAMPLER_ARGS + flags + ["--vae-ckpt", vae_bin])
+        cli.check_args(args)
+        flow = args.sampler in cli.FLOW_SAMPLERS
+        build_s = None
+        if (model.out_channels == 4) != flow:
+            del model
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            model = cli.build_model(args, torch.device("cuda"), args.seed)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        diffusion = cli.build_diffusion(args, torch.device("cuda"))
+        row, launches[name] = _sampler_chain(args, model, diffusion, evals,
+                                             profile_table and f"{root}_{name}{ext}")
+        row["model_build_s"] = build_s
+        if args.cfg_interval is not None:
+            guided = int(guided_steps_korder(diffusion.schedule, *args.cfg_interval).sum())
+            if (row["guided_calls"], row["conditional_only_calls"]) != (guided, evals - guided):
+                raise AssertionError(f"interval chain guided {row['guided_calls']} of {evals} "
+                                     f"steps, guided_steps_korder says {guided}")
+            row["guided_steps_korder"] = guided
+        elif row["guided_calls"] != evals:
+            raise AssertionError(f"{name}: {row['guided_calls']} of {evals} calls guided")
+        if name == "dpm":
+            # the CLI's own sample_latents, then the fp32 decode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat = cli.sample_latents(args, model, diffusion)
+            torch.cuda.synchronize()
+            chain_s = time.perf_counter() - t0
+            vae = cli.build_vae(args, torch.device("cuda"))
+            t0 = time.perf_counter()
+            images = cli.decode(vae, lat)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            if tuple(images.shape) != (len(cli.CLASS_LABELS), 3, 256, 256) or \
+                    not torch.isfinite(images).all():
+                raise AssertionError(f"dpm decoded images: {tuple(images.shape)}")
+            decode = {"chain_s": chain_s, "decode_s": decode_s,
+                      "images_per_s_decoded": len(cli.CLASS_LABELS) / (chain_s + decode_s)}
+            del vae, images, lat
+        chains[name] = row
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "samplers", "model": "DiT-XL/2", "image_size": 256, "dtype": "bfloat16",
+          "cfg_scale": 4.0, "labels": len(cli.CLASS_LABELS), "batch": 2 * len(cli.CLASS_LABELS),
+          "small_check": small, "chains": chains, "dpm_cli_with_decode": decode})
+    return launches
+
+
+def _small_train_check(steps=2, objective="eps"):
     """A small model trained on the card (kernels) and on the CPU (plain
     versions) from the same weights with the same draws: the last loss, the
-    last gradients, the parameters and the EMA must agree."""
+    last gradients, the parameters and the EMA must agree. The flow
+    objective draws t in [0, 1) and has no learned-sigma channels."""
     g = torch.Generator().manual_seed(4)
     x = torch.randn(4, 4, 8, 8, generator=g)
     y = torch.tensor([1, 7, 3, 999])
-    draws = [{"t": torch.randint(0, 1000, (4,), generator=g),
+    draws = [{"t": (torch.rand((4,), generator=g) if objective == "flow"
+                    else torch.randint(0, 1000, (4,), generator=g)),
               "noise": torch.randn(4, 4, 8, 8, generator=g),
               "force_drop_ids": torch.tensor([0, 1, 0, 0])} for _ in range(steps)]
     res = {}
     for device in ("cuda", "cpu"):
-        model = DiT_models["DiT-S/2"](input_size=8, depth=2, remat=True, device=device, seed=0)
+        model = DiT_models["DiT-S/2"](input_size=8, depth=2, remat=True,
+                                      learn_sigma=objective == "eps", device=device, seed=0)
         cli.perturb_(model)
         diffusion = create_diffusion("", device=device)
         state = create_train_state(model, lr=LR)
-        step = make_train_step(model, diffusion.schedule, lr=LR)
+        step = make_train_step(model, diffusion.schedule, lr=LR, objective=objective)
         batch = {"x": x.to(device), "y": y.to(device)}
         losses = [step(state, batch, draws=[{k: v.to(device) for k, v in d.items()}])["loss"]
                   .item() for d in draws]
@@ -643,11 +834,13 @@ def _small_train_check(steps=2):
     return {"max_abs_err": errs, "tol": tols, "losses": card["loss"]}
 
 
-def _train_run(flags, warmup, steps, profile_table=None):
+def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
     """The trainer CLI's own functions: build, one batch of synthetic
     latents, `warmup` steps, then `steps` timed steps with the launch counts
     set to 0 just before and read just after, and every parameter and EMA
-    leaf checked to have moved."""
+    leaf checked to have moved. With `no_sync` the timed steps run under
+    torch.cuda.set_sync_debug_mode("error"): a step that waits for the
+    device raises."""
     args = train_cli.parse_args(TRAIN_ARGS + flags)
     train_cli.check_args(args)
     torch.cuda.reset_peak_memory_stats()
@@ -664,13 +857,19 @@ def _train_run(flags, warmup, steps, profile_table=None):
     before = {n: t.detach().cpu() for n, t in leaves.items()}
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    losses = [train_step(state, batch)["loss"] for _ in range(steps)]
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [train_step(state, batch)["loss"] for _ in range(steps)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
     losses = [v.item() for v in losses]
     # every parameter and every EMA leaf must have moved over the timed steps
     still = [n for n, t in leaves.items() if torch.equal(before[n], t.detach().cpu())]
+    sampler = state.sampler_state
     if still:
         raise AssertionError(f"{len(still)} leaves did not move in {steps} training steps "
                              f"with {flags}: {still[:5]}")
@@ -691,7 +890,14 @@ def _train_run(flags, warmup, steps, profile_table=None):
            "s_per_step": loop_s / steps,
            "images_per_s": args.global_batch_size * steps / loop_s,
            "losses": losses, "launches": launches,
+           "sync_debug_mode": "error" if no_sync else None,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if sampler is not None:  # every step folded its batch into the loss history
+        counted = sampler.loss_counts.sum().item()
+        if counted != min(args.global_batch_size * (warmup + steps),
+                          sampler.num_timesteps * sampler.history_per_term):
+            raise AssertionError(f"the loss-second-moment state counted {counted} losses")
+        row["sampler_losses_counted"] = counted
     if profile_table:
         row["profile"] = profile_device(lambda: [train_step(state, batch) for _ in range(2)],
                                         profile_table, "2 training steps")
@@ -701,7 +907,9 @@ def _train_run(flags, warmup, steps, profile_table=None):
 
 
 def phase_train(profile_table):
+    """Returns {path: launches} of the four training runs."""
     small = _small_train_check()
+    small_flow = _small_train_check(objective="flow")
     table = None
     if profile_table:
         root, ext = os.path.splitext(profile_table)
@@ -710,8 +918,14 @@ def phase_train(profile_table):
                                        profile_table=table)
     fused, fused_launches = _train_run(["--fused-optimizer"], warmup=2,
                                          steps=FUSED_TRAIN_STEPS)
-    emit({"phase": "train", "small_check": small, "main": main, "fused_optimizer": fused})
-    return main_launches, fused_launches
+    flow, flow_launches = _train_run(["--objective", "flow"], warmup=2, steps=FLOW_TRAIN_STEPS,
+                                     no_sync=True)
+    lsm, lsm_launches = _train_run(["--schedule-sampler", "loss-second-moment"], warmup=2,
+                                   steps=LSM_TRAIN_STEPS, no_sync=True)
+    emit({"phase": "train", "small_check": small, "small_check_flow": small_flow,
+          "main": main, "fused_optimizer": fused, "flow": flow, "loss_second_moment": lsm})
+    return {"train": main_launches, "train_fused_optimizer": fused_launches,
+            "train_flow": flow_launches, "train_loss_second_moment": lsm_launches}
 
 
 def _dtype_name(dtype):
@@ -1341,10 +1555,11 @@ def main():
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one card.")
     ap.add_argument("--steps", type=int, default=50, help="DDPM steps of the sampling path")
     ap.add_argument("--profile", metavar="TABLE", default=None,
-                    help="profile four sampling steps, the fp32 decode of 8 latents, two "
-                         "training steps, two sequence-parallel sampling steps and one "
-                         "sequence-parallel gradient step; write the kernel tables to TABLE "
-                         "and TABLE's name + _vae, + _train, + _seq and + _seq_grad")
+                    help="profile four sampling steps, the fp32 decode of 8 latents, each "
+                         "fast-sampler chain, two training steps, two sequence-parallel "
+                         "sampling steps and one sequence-parallel gradient step; write the "
+                         "kernel tables to TABLE and TABLE's name + _vae, + _<chain>, "
+                         "+ _train, + _seq and + _seq_grad")
     a = ap.parse_args()
 
     smi = phase_device()
@@ -1360,12 +1575,15 @@ def main():
         root, ext = os.path.splitext(a.profile)
         vae_table = f"{root}_vae{ext}"
     vae = phase_vae(vae_bin, vae_table)
-    sample_launches = phase_sample(a.steps, a.profile, vae_bin)
+    sample_launches, model = phase_sample(a.steps, a.profile, vae_bin)
+    models = [model]
+    del model  # phase_samplers takes it out of `models`
+    sampler_launches = phase_samplers(a.profile, vae_bin, models)
     ddp_launches = phase_sample_ddp(vae_bin)
     phase_extract(vae)
     del vae
     torch.cuda.empty_cache()
-    train_launches, fused_launches = phase_train(a.profile)
+    train_launches = phase_train(a.profile)
     ring_fwd = phase_ring_kernel()
     ring_bwd = phase_ring_kernel_bwd()
     seq_table = None
@@ -1373,9 +1591,10 @@ def main():
         root, ext = os.path.splitext(a.profile)
         seq_table = f"{root}_seq{ext}"
     seq_sample_launches, seq_grad_launches = phase_seq_parallel(SEQ_SAMPLE_STEPS, seq_table)
-    by_path = {k: {"sample": sample_launches.get(k, 0), "sample_ddp": ddp_launches.get(k, 0),
-                   "train": train_launches.get(k, 0),
-                   "train_fused_optimizer": fused_launches.get(k, 0),
+    by_path = {k: {"sample": sample_launches.get(k, 0),
+                   **{f"samplers_{c}": n.get(k, 0) for c, n in sampler_launches.items()},
+                   "sample_ddp": ddp_launches.get(k, 0),
+                   **{path: n.get(k, 0) for path, n in train_launches.items()},
                    "seq_sample": seq_sample_launches[k], "seq_grad": seq_grad_launches[k]}
                for k in _build.launch_counts}
     for name, runs in by_path.items():

@@ -20,6 +20,11 @@ with its local weight import (`ckpt/vae_import.py`, `.bin` or
 fast_dit_torch.sample_ddp` (rank-strided PNGs and the `arr_0` npz, read
 back by the Pillow-free `utils.image.decode_png`), the image-folder
 pipeline (`data/imagenet.py`) and `python -m fast_dit_torch.extract_features`.
+Slice 7 completes the diffusion library but the FORA-cached loops:
+DPM-Solver++ and UniPC, Karras spacing, the guidance interval, the reverse
+DDIM loop, the bits-per-dim bound, flow matching (`diffusion/flow.py`) and
+the loss-aware timestep sampler (`diffusion/timestep_samplers.py`), wired
+into both sampler CLIs and the trainer.
 """
 
 __version__ = "0.1.0"

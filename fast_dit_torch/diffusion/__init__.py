@@ -1,24 +1,34 @@
-"""Diffusion sampling core: schedules, the respacing DSL, the Gaussian step
-math and the sampling loops.
+"""Diffusion library: schedules, the respacing DSL, the Gaussian step math,
+the sampling loops, flow matching, the guidance interval and the timestep
+samplers.
 
 `create_diffusion` keeps the signature and defaults of
 `fast_dit_tpu/diffusion/__init__.py:249-291` (1000-step linear schedule,
 epsilon prediction, LEARNED_RANGE variance, MSE loss, the "250" / "ddim50" /
-"10,15,20" respacing strings), plus the `device` the tables live on ("cuda"
-unless the caller asks for the CPU). The `Diffusion` facade carries
-`q_sample`, `training_losses`, `p_sample_loop` and `ddim_sample_loop`.
+"10,15,20" / "karrasN" respacing strings), plus the `device` the tables live
+on ("cuda" unless the caller asks for the CPU). The `Diffusion` facade
+carries the method surface of the JAX facade (:95-247) except the
+FORA-cached loops.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import gaussian, sampling
 from ..utils.device import resolve_device
-from .respace import space_timesteps
-from .sampling import ddim_sample_loop, p_sample_loop
+from .flow import (FLOW_PATHS, flow_path_coeffs, flow_reverse_loop, flow_sample_loop,
+                   flow_training_losses)
+from .guidance_interval import guidance_interval_fn, guidance_interval_mask, guided_steps_korder
+from .respace import karras_timesteps, space_timesteps
+from .sampling import (ddim_reverse_sample_loop, ddim_sample_loop, dpm_solver_sample_loop,
+                       p_sample_loop, unipc_sample_loop)
 from .schedule import (DiffusionSchedule, LossType, MeanType, VarType,
                        betas_for_alpha_bar, get_named_beta_schedule)
+from .timestep_samplers import (LossSecondMomentState, UniformSamplerState,
+                                create_named_schedule_sampler, sample_timesteps,
+                                update_with_losses)
 
 __all__ = [
     "create_diffusion",
@@ -28,16 +38,31 @@ __all__ = [
     "VarType",
     "LossType",
     "space_timesteps",
+    "karras_timesteps",
     "get_named_beta_schedule",
     "betas_for_alpha_bar",
+    "FLOW_PATHS",
+    "flow_path_coeffs",
+    "flow_training_losses",
+    "flow_sample_loop",
+    "flow_reverse_loop",
+    "guidance_interval_fn",
+    "guidance_interval_mask",
+    "guided_steps_korder",
     "gaussian",
     "sampling",
+    "create_named_schedule_sampler",
+    "sample_timesteps",
+    "update_with_losses",
+    "UniformSamplerState",
+    "LossSecondMomentState",
 ]
 
 
 class Diffusion:
-    """Facade over the functional core. `model_fn(x, t_original)` receives
-    original-process timesteps: the respacing remap is applied inside."""
+    """Facade over the functional core. `model_fn(x, t_original, **model_kwargs)`
+    receives original-process timesteps: the respacing remap is applied
+    inside."""
 
     def __init__(self, schedule: DiffusionSchedule):
         self.schedule = schedule
@@ -46,8 +71,27 @@ class Diffusion:
     def num_timesteps(self) -> int:
         return self.schedule.num_timesteps
 
+    @property
+    def original_num_steps(self) -> int:
+        return self.schedule.original_num_steps
+
+    @property
+    def timestep_map(self) -> torch.Tensor:
+        return self.schedule.timestep_map
+
+    @staticmethod
+    def _wrap(model_fn, model_kwargs):
+        kwargs = model_kwargs or {}
+        return lambda x, t: model_fn(x, t, **kwargs)
+
     def q_sample(self, x_start, t, noise):
         return gaussian.q_sample(self.schedule, x_start, t, noise)
+
+    def q_mean_variance(self, x_start, t):
+        return gaussian.q_mean_variance(self.schedule, x_start, t)
+
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        return gaussian.q_posterior_mean_variance(self.schedule, x_start, x_t, t)
 
     def training_losses(self, model_fn, x_start, t, model_kwargs=None, noise=None,
                         generator=None):
@@ -56,22 +100,62 @@ class Diffusion:
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
                                 device=x_start.device)
-        kwargs = model_kwargs or {}
-        return gaussian.training_losses(self.schedule, lambda x, tt: model_fn(x, tt, **kwargs),
+        return gaussian.training_losses(self.schedule, self._wrap(model_fn, model_kwargs),
                                         x_start, t, noise)
 
+    def calc_bpd_loop(self, model_fn, x_start, *, generator=None, noise=None,
+                      clip_denoised=True, model_kwargs=None):
+        return gaussian.calc_bpd_loop(self.schedule, self._wrap(model_fn, model_kwargs),
+                                      x_start, generator=generator, noise=noise,
+                                      clip_denoised=clip_denoised)
+
     def p_sample_loop(self, model_fn, shape, *, generator=None, noise=None,
-                      step_noise=None, clip_denoised=True, dtype=torch.float32):
-        return p_sample_loop(model_fn, shape, self.schedule, generator=generator,
-                             noise=noise, step_noise=step_noise,
-                             clip_denoised=clip_denoised, dtype=dtype)
+                      step_noise=None, clip_denoised=True, denoised_fn=None, cond_fn=None,
+                      model_kwargs=None, return_intermediates=False, dtype=torch.float32):
+        return p_sample_loop(self._wrap(model_fn, model_kwargs), shape, self.schedule,
+                             generator=generator, noise=noise, step_noise=step_noise,
+                             clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                             cond_fn=cond_fn, return_intermediates=return_intermediates,
+                             dtype=dtype)
 
     def ddim_sample_loop(self, model_fn, shape, *, generator=None, noise=None,
-                         step_noise=None, clip_denoised=True, eta=0.0,
+                         step_noise=None, clip_denoised=True, denoised_fn=None, cond_fn=None,
+                         eta=0.0, model_kwargs=None, return_intermediates=False,
                          dtype=torch.float32):
-        return ddim_sample_loop(model_fn, shape, self.schedule, generator=generator,
-                                noise=noise, step_noise=step_noise,
-                                clip_denoised=clip_denoised, eta=eta, dtype=dtype)
+        return ddim_sample_loop(self._wrap(model_fn, model_kwargs), shape, self.schedule,
+                                generator=generator, noise=noise, step_noise=step_noise,
+                                clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                cond_fn=cond_fn, eta=eta,
+                                return_intermediates=return_intermediates, dtype=dtype)
+
+    def dpm_solver_sample_loop(self, model_fn, shape, *, generator=None, noise=None, order=2,
+                               clip_denoised=True, denoised_fn=None, model_kwargs=None,
+                               return_intermediates=False, dtype=torch.float32):
+        """DPM-Solver++(2M), deterministic: pair with 10-25 respaced steps;
+        order 1 is eta = 0 DDIM."""
+        return dpm_solver_sample_loop(self._wrap(model_fn, model_kwargs), shape, self.schedule,
+                                      generator=generator, noise=noise, order=order,
+                                      clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                      return_intermediates=return_intermediates, dtype=dtype)
+
+    def unipc_sample_loop(self, model_fn, shape, *, generator=None, noise=None, order=2,
+                          corrector=True, variant="bh2", clip_denoised=True, denoised_fn=None,
+                          model_kwargs=None, return_intermediates=False, dtype=torch.float32):
+        """UniPC: DPM-Solver++(2M)'s budget plus a corrector that reuses each
+        step's evaluation; `corrector=False, variant="bh2"` is DPM++(2M)."""
+        return unipc_sample_loop(self._wrap(model_fn, model_kwargs), shape, self.schedule,
+                                 generator=generator, noise=noise, order=order,
+                                 corrector=corrector, variant=variant,
+                                 clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                 return_intermediates=return_intermediates, dtype=dtype)
+
+    def ddim_reverse_sample_loop(self, model_fn, x_start, *, clip_denoised=True,
+                                 denoised_fn=None, cond_fn=None, model_kwargs=None,
+                                 return_intermediates=False, dtype=torch.float32):
+        return ddim_reverse_sample_loop(self._wrap(model_fn, model_kwargs), x_start,
+                                        self.schedule, clip_denoised=clip_denoised,
+                                        denoised_fn=denoised_fn, cond_fn=cond_fn,
+                                        return_intermediates=return_intermediates, dtype=dtype)
 
 
 def create_diffusion(
@@ -96,13 +180,20 @@ def create_diffusion(
         loss_type = LossType.MSE
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
+    if isinstance(timestep_respacing, str) and timestep_respacing.startswith("karras"):
+        # "karrasN" needs the betas, so it is dispatched here and not in the
+        # schedule-blind space_timesteps DSL
+        alphas_cumprod = np.cumprod(1.0 - np.asarray(betas, np.float64))
+        use_timesteps = karras_timesteps(alphas_cumprod, int(timestep_respacing[6:]))
+    else:
+        use_timesteps = space_timesteps(diffusion_steps, timestep_respacing)
     schedule = DiffusionSchedule.create(
         betas,
         mean_type=MeanType.START_X if predict_xstart else MeanType.EPSILON,
         var_type=(VarType.LEARNED_RANGE if learn_sigma
                   else VarType.FIXED_SMALL if sigma_small else VarType.FIXED_LARGE),
         loss_type=loss_type,
-        use_timesteps=space_timesteps(diffusion_steps, timestep_respacing),
+        use_timesteps=use_timesteps,
         device=device,
     )
     return Diffusion(schedule)

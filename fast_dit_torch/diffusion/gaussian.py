@@ -1,18 +1,26 @@
-"""Gaussian-diffusion sampling math as plain tensor functions of a
+"""Gaussian-diffusion math as plain tensor functions of a
 `DiffusionSchedule`.
 
 Counterpart of `fast_dit_tpu/diffusion/gaussian.py`: the small math
-utilities (:60-110), `extract`, `q_sample`, `q_posterior_mean_variance`, the
-prediction helpers, `p_mean_variance` with the LEARNED_RANGE split, the
-DDPM / DDIM single steps (:113-342), and the training side, `vb_terms_bpd`
-and `training_losses` (:374-459). Sampling functions take the model OUTPUT,
-so the caller owns the model call; `training_losses` calls `model_fn` once.
+utilities (:60-110), `extract`, `q_mean_variance`, `q_sample`,
+`q_posterior_mean_variance`, the prediction helpers, `p_mean_variance` with
+the LEARNED_RANGE split and `denoised_fn`, classifier guidance
+(`condition_mean`, `condition_score`), the DDPM / DDIM / reverse-DDIM single
+steps (:113-372), and the training and likelihood side, `vb_terms_bpd`,
+`training_losses`, `prior_bpd` and `calc_bpd_loop` (:374-515). Sampling
+functions take the model OUTPUT, so the caller owns the model call;
+`training_losses` calls `model_fn` once, `calc_bpd_loop` once per timestep.
+A loop over timesteps calls its model through `model_call`, which publishes
+the step's timestep on the host (`host_timestep`) for a model function that
+decides something per step (the guidance interval) without reading the
+device.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -23,19 +31,48 @@ __all__ = [
     "normal_kl",
     "approx_standard_normal_cdf",
     "discretized_gaussian_log_likelihood",
+    "continuous_gaussian_log_likelihood",
     "vb_terms_bpd",
     "training_losses",
+    "prior_bpd",
+    "calc_bpd_loop",
+    "host_timestep",
+    "model_call",
     "extract",
+    "q_mean_variance",
     "q_sample",
     "q_posterior_mean_variance",
     "PMeanVariance",
     "p_mean_variance",
     "predict_xstart_from_eps",
     "predict_eps_from_xstart",
+    "condition_mean",
+    "condition_score",
     "StepResult",
     "p_sample_step",
     "ddim_step",
+    "ddim_reverse_step",
 ]
+
+_HOST_TIMESTEP = contextvars.ContextVar("fast_dit_torch_host_timestep", default=None)
+
+
+def host_timestep() -> Optional[int]:
+    """The timestep of the model call a loop is making (`model_call`), as
+    a host int; None outside such a call."""
+    return _HOST_TIMESTEP.get()
+
+
+def model_call(model_fn: Callable, x, t_model: int, cond_fn=None):
+    """(model_fn(x, t), cond_fn(x, t) or None) for t the (B,) int64 tensor
+    filled with the host int `t_model`, which `host_timestep` returns
+    meanwhile."""
+    t = torch.full((x.shape[0],), t_model, dtype=torch.int64, device=x.device)
+    token = _HOST_TIMESTEP.set(t_model)
+    try:
+        return model_fn(x, t), None if cond_fn is None else cond_fn(x, t)
+    finally:
+        _HOST_TIMESTEP.reset(token)
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +89,13 @@ def normal_kl(mean1, logvar1, mean2, logvar2):
 def approx_standard_normal_cdf(x):
     """tanh-based approximation of the standard normal CDF."""
     return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def continuous_gaussian_log_likelihood(x, *, means, log_scales):
+    """log N(x; means, exp(log_scales)^2), without the log-scale term, as
+    the reference computes it."""
+    normalized_x = (x - means) * torch.exp(-log_scales)
+    return -0.5 * (normalized_x ** 2 + math.log(2 * math.pi))
 
 
 def discretized_gaussian_log_likelihood(x, *, means, log_scales):
@@ -75,6 +119,15 @@ def extract(table: torch.Tensor, t: torch.Tensor, ndim: int, dtype=None) -> torc
     if dtype is not None:
         out = out.to(dtype)
     return out.reshape(t.shape[0], *((1,) * (ndim - 1)))
+
+
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """q(x_t | x_0) moments: mean, variance, log variance."""
+    nd = x_start.ndim
+    mean = extract(sched.sqrt_alphas_cumprod, t, nd, x_start.dtype) * x_start
+    variance = extract(1.0 - sched.alphas_cumprod, t, nd, x_start.dtype)
+    log_variance = extract(sched.log_one_minus_alphas_cumprod, t, nd, x_start.dtype)
+    return mean, variance, log_variance
 
 
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
@@ -118,12 +171,13 @@ def predict_eps_from_xstart(sched: DiffusionSchedule, x_t, t, pred_xstart):
 
 
 def p_mean_variance(sched: DiffusionSchedule, model_output, x, t, *,
-                    clip_denoised: bool = True) -> PMeanVariance:
+                    clip_denoised: bool = True, denoised_fn=None) -> PMeanVariance:
     """p(x_{t-1} | x_t) moments and the x_0 prediction, from a model OUTPUT.
 
     Includes the LEARNED_RANGE channel split and the quirk that a
     PREVIOUS_X mean type still routes through the epsilon parameterization.
-    The channel axis is axis 1 (NCHW).
+    `denoised_fn`, then the clip, apply to the x_0 prediction. The channel
+    axis is axis 1 (NCHW).
     """
     B, C = x.shape[:2]
     nd = x.ndim
@@ -156,10 +210,31 @@ def p_mean_variance(sched: DiffusionSchedule, model_output, x, t, *,
         pred_xstart = model_output
     else:
         pred_xstart = predict_xstart_from_eps(sched, x, t, model_output)
+    if denoised_fn is not None:
+        pred_xstart = denoised_fn(pred_xstart)
     if clip_denoised:
         pred_xstart = pred_xstart.clamp(-1.0, 1.0)
     model_mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return PMeanVariance(model_mean, model_variance, model_log_variance, pred_xstart)
+
+
+def condition_mean(sched: DiffusionSchedule, cond_grad, out: PMeanVariance) -> PMeanVariance:
+    """Shift the mean by variance * grad log p(y | x) (Sohl-Dickstein et
+    al.); in fp32, as the JAX function does."""
+    new_mean = out.mean.float() + out.variance * cond_grad.float()
+    return out._replace(mean=new_mean)
+
+
+def condition_score(sched: DiffusionSchedule, cond_grad, out: PMeanVariance, x,
+                    t) -> PMeanVariance:
+    """Condition the score instead (Song et al. 2020): eps -= sqrt(1 - abar)
+    * grad, and the x_0 prediction and mean follow."""
+    alpha_bar = extract(sched.alphas_cumprod, t, x.ndim, x.dtype)
+    eps = predict_eps_from_xstart(sched, x, t, out.pred_xstart)
+    eps = eps - torch.sqrt(1 - alpha_bar) * cond_grad
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return out._replace(mean=mean, pred_xstart=pred_xstart)
 
 
 class StepResult(NamedTuple):
@@ -173,18 +248,27 @@ def _nonzero_mask(t, ndim, dtype):
 
 
 def p_sample_step(sched: DiffusionSchedule, model_output, x, t, noise, *,
-                  clip_denoised: bool = True) -> StepResult:
-    """One DDPM ancestral step x_t -> x_{t-1}."""
-    out = p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised)
+                  clip_denoised: bool = True, denoised_fn=None, cond_grad=None) -> StepResult:
+    """One DDPM ancestral step x_t -> x_{t-1}; `cond_grad` shifts the mean
+    (`condition_mean`)."""
+    out = p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised,
+                          denoised_fn=denoised_fn)
+    if cond_grad is not None:
+        out = condition_mean(sched, cond_grad, out)
     mask = _nonzero_mask(t, x.ndim, x.dtype)
     sample = out.mean + mask * torch.exp(0.5 * out.log_variance) * noise
     return StepResult(sample, out.pred_xstart)
 
 
 def ddim_step(sched: DiffusionSchedule, model_output, x, t, noise=None, *,
-              eta: float = 0.0, clip_denoised: bool = True) -> StepResult:
-    """One DDIM step (Eq. 12)."""
-    out = p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised)
+              eta: float = 0.0, clip_denoised: bool = True, denoised_fn=None,
+              cond_grad=None) -> StepResult:
+    """One DDIM step (Eq. 12); `cond_grad` conditions the score
+    (`condition_score`)."""
+    out = p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised,
+                          denoised_fn=denoised_fn)
+    if cond_grad is not None:
+        out = condition_score(sched, cond_grad, out, x, t)
     eps = predict_eps_from_xstart(sched, x, t, out.pred_xstart)
     nd = x.ndim
     alpha_bar = extract(sched.alphas_cumprod, t, nd, x.dtype)
@@ -198,6 +282,22 @@ def ddim_step(sched: DiffusionSchedule, model_output, x, t, noise=None, *,
     else:
         sample = mean_pred + _nonzero_mask(t, nd, x.dtype) * sigma * noise
     return StepResult(sample, out.pred_xstart)
+
+
+def ddim_reverse_step(sched: DiffusionSchedule, model_output, x, t, *,
+                      clip_denoised: bool = True, denoised_fn=None,
+                      cond_grad=None) -> StepResult:
+    """One step of the reverse DDIM ODE, x_t -> x_{t+1}."""
+    out = p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised,
+                          denoised_fn=denoised_fn)
+    if cond_grad is not None:
+        out = condition_score(sched, cond_grad, out, x, t)
+    nd = x.ndim
+    eps = ((extract(sched.sqrt_recip_alphas_cumprod, t, nd, x.dtype) * x - out.pred_xstart)
+           / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd, x.dtype))
+    alpha_bar_next = extract(sched.alphas_cumprod_next, t, nd, x.dtype)
+    mean_pred = out.pred_xstart * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+    return StepResult(mean_pred, out.pred_xstart)
 
 
 def vb_terms_bpd(sched: DiffusionSchedule, model_output, x_start, x_t, t, *,
@@ -259,3 +359,44 @@ def training_losses(sched: DiffusionSchedule, model_fn: Callable, x_start, t, no
     else:
         raise NotImplementedError(sched.loss_type)
     return terms
+
+
+def prior_bpd(sched: DiffusionSchedule, x_start) -> torch.Tensor:
+    """The prior term KL(q(x_T | x_0) || N(0, I)) in bits per dim, (B,)."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.int64,
+                   device=x_start.device)
+    qt_mean, _, qt_log_variance = q_mean_variance(sched, x_start, t)
+    zero = torch.zeros((), dtype=qt_mean.dtype, device=qt_mean.device)
+    kl_prior = normal_kl(qt_mean, qt_log_variance, zero, zero)
+    return mean_flat(kl_prior) / math.log(2.0)
+
+
+def calc_bpd_loop(sched: DiffusionSchedule, model_fn: Callable, x_start, *,
+                  generator=None, noise=None, clip_denoised: bool = True,
+                  map_timesteps: bool = True) -> dict:
+    """The whole variational bound in bits per dim, one model call per
+    timestep from t = T-1 down to 0. The k-th step's noise is `noise[k]`
+    ((T, *x_start.shape)), else drawn from `generator`. Returns (B,)
+    "total_bpd" and "prior_bpd", and (B, T) "vb", "xstart_mse" and "mse",
+    columns in the order t = T-1 .. 0, as the JAX function does."""
+    B, T = x_start.shape[0], sched.num_timesteps
+    if noise is None and generator is None:
+        raise ValueError("calc_bpd_loop needs `noise` or `generator`")
+    vb, xstart_mse, mse = [], [], []
+    for k, i in enumerate(range(T - 1, -1, -1)):
+        t = torch.full((B,), i, dtype=torch.int64, device=x_start.device)
+        n = (noise[k] if noise is not None else
+             torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                         device=x_start.device))
+        x_t = q_sample(sched, x_start, t, n)
+        model_output, _ = model_call(model_fn, x_t,
+                                     sched.timestep_map_host[i] if map_timesteps else i)
+        out, pred_xstart = vb_terms_bpd(sched, model_output, x_start, x_t, t,
+                                        clip_denoised=clip_denoised)
+        vb.append(out)
+        xstart_mse.append(mean_flat((pred_xstart - x_start) ** 2))
+        mse.append(mean_flat((predict_eps_from_xstart(sched, x_t, t, pred_xstart) - n) ** 2))
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
+    prior = prior_bpd(sched, x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}

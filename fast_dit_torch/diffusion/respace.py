@@ -1,17 +1,21 @@
 """Timestep-respacing mini-DSL (the port's copy of
-`fast_dit_tpu/diffusion/respace.py:space_timesteps`).
+`fast_dit_tpu/diffusion/respace.py`: `space_timesteps` and
+`karras_timesteps` :68-107).
 
 "250" strides 1000 steps down to 250, "ddimN" uses the fixed DDIM-paper
 striding, and "10,15,20" splits the process into equal sections with
-per-section counts. The respaced tables are built by
-`DiffusionSchedule.create(use_timesteps=...)`.
+per-section counts. "karrasN" (dispatched by `create_diffusion`, which has
+the betas it needs) keeps N timesteps at Karras sigma positions. The
+respaced tables are built by `DiffusionSchedule.create(use_timesteps=...)`.
 """
 
 from __future__ import annotations
 
 from itertools import accumulate, chain, repeat
 
-__all__ = ["space_timesteps"]
+import numpy as np
+
+__all__ = ["space_timesteps", "karras_timesteps"]
 
 
 def space_timesteps(num_timesteps: int, section_counts) -> set:
@@ -51,4 +55,35 @@ def space_timesteps(num_timesteps: int, section_counts) -> set:
         stride = 1.0 if count <= 1 else (size - 1) / (count - 1)
         positions = accumulate(chain([0.0], repeat(stride, count - 1)))
         kept.update(start + round(c) for c in positions)
+    return kept
+
+
+def karras_timesteps(alphas_cumprod, n: int, rho: float = 7.0) -> set:
+    """Pick `n` original-process timesteps at Karras sigma positions
+    (arXiv:2206.00364, eq. 5): sigma_i = (smax^(1/rho) + i/(n-1)
+    (smin^(1/rho) - smax^(1/rho)))^rho, each snapped to the nearest
+    timestep by VP sigma = sqrt((1 - abar) / abar), collisions nudged to the
+    nearest free index so that exactly `n` remain. All in fp64 numpy, so the
+    set equals the JAX package's."""
+    abar = np.asarray(alphas_cumprod, np.float64)
+    T = len(abar)
+    if not 1 <= n <= T:
+        raise ValueError(f"cannot pick {n} karras steps from {T}")
+    sigmas = np.sqrt((1.0 - abar) / abar)  # increasing in t
+    smin, smax = sigmas[0], sigmas[-1]
+    inv = 1.0 / rho
+    grid = (smax ** inv + np.linspace(0.0, 1.0, n) * (smin ** inv - smax ** inv)) ** rho
+    pos = np.searchsorted(sigmas, grid)
+    lo = np.clip(pos - 1, 0, T - 1)
+    hi = np.clip(pos, 0, T - 1)
+    ts = np.where(np.abs(sigmas[lo] - grid) <= np.abs(sigmas[hi] - grid), lo, hi)
+    kept: set = set()
+    for t in ts:  # the grid decreases: large t first; collisions move down
+        t = int(t)
+        while t in kept and t > 0:
+            t -= 1
+        while t in kept:  # collided at 0: walk up instead
+            t += 1
+        kept.add(t)
+    assert len(kept) == n and max(kept) < T
     return kept

@@ -1,76 +1,276 @@
 """Sampling loops: a Python loop over timesteps, one model call per step.
 
-Counterpart of `fast_dit_tpu/diffusion/sampling.py` (`_loop`,
-`p_sample_loop`, `ddim_sample_loop`, :35-180), where the chain is one
-`lax.scan`. Every loop takes either a `torch.Generator` or explicit noise:
-`noise` for x_T and `step_noise[k]` for the k-th step's Gaussian, so a test
-can inject the same draws into both packages.
+Counterpart of `fast_dit_tpu/diffusion/sampling.py`: `_loop` with its DDPM,
+DDIM and reverse-DDIM kinds (`p_sample_loop`, `ddim_sample_loop`,
+`ddim_reverse_sample_loop`, :35-180, :496), DPM-Solver++ (:515) and UniPC
+(:607). JAX compiles each chain into one `lax.scan`; here every step is
+issued from Python. Every loop takes either a `torch.Generator` or explicit
+noise: `noise` for x_T and `step_noise[k]` for the k-th step's Gaussian, so a
+test can inject the same draws into both packages.
+
+No loop waits for the device: the per-step coefficients are host floats,
+and every model call goes through `gaussian.model_call` with the step's
+original timestep from the schedule's host map, which it publishes on the
+host (`gaussian.host_timestep`) for the guidance interval. The FORA-cached
+loops (:183-495) are not ported.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from . import gaussian
 from .schedule import DiffusionSchedule
 
-__all__ = ["p_sample_loop", "ddim_sample_loop"]
+__all__ = ["p_sample_loop", "ddim_sample_loop", "ddim_reverse_sample_loop",
+           "dpm_solver_sample_loop", "unipc_sample_loop", "dpm_solver_coefficients",
+           "unipc_coefficients"]
+
+
+def _init_noise(shape, noise, generator, dtype, device):
+    if noise is not None:
+        return torch.as_tensor(noise, dtype=dtype, device=device)
+    if generator is None:
+        raise ValueError("either `noise` or `generator` must be provided")
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype, device=device)
+
+
+def _apply_step(step_kind, sched, model_output, x, t, n, *, clip_denoised, denoised_fn,
+                cond_grad, eta):
+    if step_kind == "p":
+        return gaussian.p_sample_step(sched, model_output, x, t, n, clip_denoised=clip_denoised,
+                                      denoised_fn=denoised_fn, cond_grad=cond_grad)
+    if step_kind == "ddim":
+        return gaussian.ddim_step(sched, model_output, x, t, n, eta=eta,
+                                  clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                  cond_grad=cond_grad)
+    assert step_kind == "ddim_reverse"
+    return gaussian.ddim_reverse_step(sched, model_output, x, t, clip_denoised=clip_denoised,
+                                      denoised_fn=denoised_fn, cond_grad=cond_grad)
 
 
 def _loop(step_kind: str, model_fn: Callable, shape, sched: DiffusionSchedule, *,
           generator: Optional[torch.Generator] = None, noise=None, step_noise=None,
-          clip_denoised: bool = True, eta: float = 0.0, dtype=torch.float32):
-    device = sched.timestep_map.device
-    if noise is not None:
-        x = torch.as_tensor(noise, dtype=dtype, device=device)
-        shape = tuple(x.shape)
-    elif generator is None:
-        raise ValueError("either `noise` or `generator` must be provided")
-    else:
-        x = torch.randn(tuple(shape), generator=generator, dtype=dtype, device=device)
+          clip_denoised: bool = True, denoised_fn=None, cond_fn=None, eta: float = 0.0,
+          return_intermediates: bool = False, dtype=torch.float32):
+    x = _init_noise(shape, noise, generator, dtype, sched.timestep_map.device)
+    shape = tuple(x.shape)
     T = sched.num_timesteps
-    needs_noise = step_kind == "p" or eta != 0.0
+    needs_noise = step_kind == "p" or (step_kind == "ddim" and eta != 0.0)
     if step_noise is not None:
-        step_noise = torch.as_tensor(step_noise, dtype=dtype, device=device)
+        step_noise = torch.as_tensor(step_noise, dtype=dtype, device=x.device)
         if tuple(step_noise.shape) != (T, *shape):
             raise ValueError(f"step_noise must be (T, *shape) = {(T, *shape)}, "
                              f"got {tuple(step_noise.shape)}")
     elif needs_noise and generator is None:
         raise ValueError("stochastic sampling needs `generator` or `step_noise`")
 
-    B = shape[0]
-    for k, i in enumerate(range(T - 1, -1, -1)):
-        t = torch.full((B,), i, dtype=torch.int64, device=device)
-        model_output = model_fn(x, sched.timestep_map[t])
+    visits = range(T) if step_kind == "ddim_reverse" else range(T - 1, -1, -1)
+    intermediates = []
+    for k, i in enumerate(visits):
+        t = torch.full((shape[0],), i, dtype=torch.int64, device=x.device)
+        model_output, cond_grad = gaussian.model_call(model_fn, x, sched.timestep_map_host[i],
+                                                      cond_fn)
         n = None
         if needs_noise:
             n = (step_noise[k] if step_noise is not None else
-                 torch.randn(tuple(shape), generator=generator, dtype=dtype, device=device))
-        if step_kind == "p":
-            x = gaussian.p_sample_step(sched, model_output, x, t, n,
-                                       clip_denoised=clip_denoised).sample
-        else:
-            x = gaussian.ddim_step(sched, model_output, x, t, n, eta=eta,
-                                   clip_denoised=clip_denoised).sample
-    return x
+                 torch.randn(shape, generator=generator, dtype=dtype, device=x.device))
+        x = _apply_step(step_kind, sched, model_output, x, t, n, clip_denoised=clip_denoised,
+                        denoised_fn=denoised_fn, cond_grad=cond_grad, eta=eta).sample
+        if return_intermediates:
+            intermediates.append(x)
+    return (x, torch.stack(intermediates)) if return_intermediates else x
 
 
 def p_sample_loop(model_fn: Callable, shape, sched: DiffusionSchedule, *,
-                  generator=None, noise=None, step_noise=None,
-                  clip_denoised: bool = True, dtype=torch.float32):
+                  generator=None, noise=None, step_noise=None, clip_denoised: bool = True,
+                  denoised_fn=None, cond_fn=None, return_intermediates: bool = False,
+                  dtype=torch.float32):
     """DDPM ancestral sampling. `model_fn(x, t_original)` receives
-    original-process timesteps: the respacing remap is applied here."""
+    original-process timesteps: the respacing remap is applied here.
+    `cond_fn(x, t_original)` gives a classifier gradient that shifts each
+    step's mean. With `return_intermediates`, also the (T, *shape) stack of
+    every step's sample."""
     return _loop("p", model_fn, shape, sched, generator=generator, noise=noise,
-                 step_noise=step_noise, clip_denoised=clip_denoised, dtype=dtype)
+                 step_noise=step_noise, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                 cond_fn=cond_fn, return_intermediates=return_intermediates, dtype=dtype)
 
 
 def ddim_sample_loop(model_fn: Callable, shape, sched: DiffusionSchedule, *,
                      generator=None, noise=None, step_noise=None,
-                     clip_denoised: bool = True, eta: float = 0.0,
+                     clip_denoised: bool = True, denoised_fn=None, cond_fn=None,
+                     eta: float = 0.0, return_intermediates: bool = False,
                      dtype=torch.float32):
-    """DDIM sampling."""
+    """DDIM sampling; `cond_fn` conditions the score."""
     return _loop("ddim", model_fn, shape, sched, generator=generator, noise=noise,
-                 step_noise=step_noise, clip_denoised=clip_denoised, eta=eta,
+                 step_noise=step_noise, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                 cond_fn=cond_fn, eta=eta, return_intermediates=return_intermediates,
                  dtype=dtype)
+
+
+def ddim_reverse_sample_loop(model_fn: Callable, x_start, sched: DiffusionSchedule, *,
+                             clip_denoised: bool = True, denoised_fn=None, cond_fn=None,
+                             return_intermediates: bool = False, dtype=torch.float32):
+    """The reverse DDIM ODE: encode x_0 into x_T, t = 0 .. T-1."""
+    return _loop("ddim_reverse", model_fn, x_start.shape, sched, noise=x_start,
+                 clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+                 return_intermediates=return_intermediates, dtype=dtype)
+
+
+def dpm_solver_coefficients(sched: DiffusionSchedule) -> dict:
+    """DPM-Solver++(2M)'s per-step coefficients in step order (k = 0 visits
+    t = T-1), as host floats: "c_x" and "c_d" of the update x' = c_x x +
+    c_d D_bar, and "w1" = 1 + w and "w" of the multistep correction D_bar =
+    (1 + w) D_k - w D_{k-1}. Computed as the JAX loop computes them on its
+    device (`sampling.py:566-582`): in fp32 from the fp32 alphas_cumprod
+    table, with log and log1p, here on the CPU, whose fp32 log may round an
+    ulp apart from XLA's."""
+    abar = torch.tensor(sched.alphas_cumprod_fp64, dtype=torch.float32).flip(0)
+    alpha = torch.sqrt(abar)
+    sigma = torch.sqrt(1.0 - abar)
+    lam = 0.5 * (torch.log(abar) - torch.log1p(-abar))
+    one, zero = torch.ones(1), torch.zeros(1)
+    # a virtual final target state, clean data (alpha 1, sigma 0)
+    a_tgt = torch.cat([alpha[1:], one])
+    s_tgt = torch.cat([sigma[1:], zero])
+    c_x = s_tgt / sigma
+    e_mh = alpha * s_tgt / (a_tgt * sigma)  # e^{-h}; 0 at the final step
+    c_d = a_tgt * (1.0 - e_mh)
+    # h_k = lambda_{k+1} - lambda_k, 0 at the final step: w there is 0 (the
+    # lower-order-final rule), and w is 0 at the first step (no history)
+    h = torch.cat([lam[1:] - lam[:-1], zero])
+    w = torch.cat([zero, h[1:] / (2.0 * h[:-1])]) if len(abar) > 1 else zero
+    return {"c_x": c_x.tolist(), "c_d": c_d.tolist(), "w": w.tolist(),
+            "w1": (1.0 + w).tolist()}
+
+
+def dpm_solver_sample_loop(model_fn: Callable, shape, sched: DiffusionSchedule, *,
+                           generator=None, noise=None, order: int = 2,
+                           clip_denoised: bool = True, denoised_fn=None,
+                           return_intermediates: bool = False, dtype=torch.float32):
+    """DPM-Solver++(2M) (Lu et al., arXiv:2211.01095): deterministic
+    multistep sampling in the data-prediction parameterization over log-SNR.
+    Order 1 is eta = 0 DDIM; order 2 adds the multistep correction, with
+    first-order first and last steps. One model call per respaced step;
+    `noise` or `generator` only seed x_T."""
+    assert order in (1, 2), order
+    x = _init_noise(shape, noise, generator, dtype, sched.timestep_map.device)
+    T = sched.num_timesteps
+    co = dpm_solver_coefficients(sched)
+    d_prev = torch.zeros_like(x)
+    intermediates = []
+    for k in range(T):
+        i = T - 1 - k
+        t = torch.full((x.shape[0],), i, dtype=torch.int64, device=x.device)
+        model_output, _ = gaussian.model_call(model_fn, x, sched.timestep_map_host[i])
+        d = gaussian.p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised,
+                                     denoised_fn=denoised_fn).pred_xstart
+        w = co["w"][k] if order == 2 else 0.0
+        # (1 + w) d - w d_prev is d itself where w = 0
+        d_bar = co["w1"][k] * d.float() - w * d_prev.float() if w else d
+        x = (co["c_x"][k] * x.float() + co["c_d"][k] * d_bar.float()).to(dtype)
+        d_prev = d
+        if return_intermediates:
+            intermediates.append(x)
+    return (x, torch.stack(intermediates)) if return_intermediates else x
+
+
+def unipc_coefficients(sched: DiffusionSchedule, order: int = 2, corrector: bool = True,
+                       variant: str = "bh2") -> dict:
+    """UniPC's per-step coefficient tables in step order, (T,) fp32 numpy:
+    built on the host in fp64 from the schedule's fp64 alphas_cumprod and
+    rounded to fp32 once, as `sampling.py:659-714` bakes them, so they equal
+    the JAX tables bit for bit. Predictor x' = c_x_p x + A_p m + p_res rho_p
+    D1p; the corrector at step k (gate 1) rebuilds state k from state k-1
+    with c_x_c, A_c, rc0, rc1 and r0c."""
+    assert order in (1, 2), order
+    assert variant in ("bh1", "bh2"), variant
+    T = sched.num_timesteps
+    abar = np.asarray(sched.alphas_cumprod_fp64, np.float64)[::-1]
+    alpha = np.sqrt(abar)
+    sigma = np.sqrt(1.0 - abar)
+    lam = 0.5 * (np.log(abar) - np.log1p(-abar))
+    a_tgt = np.append(alpha[1:], 1.0)
+    s_tgt = np.append(sigma[1:], 0.0)
+    c_x_p = s_tgt / sigma
+    e_mh = alpha * s_tgt / (a_tgt * sigma)        # e^{-h_k}; 0 at the final step
+    A_p = a_tgt * (1.0 - e_mh)
+    h = np.append(lam[1:] - lam[:-1], np.inf)     # h[T-1] = inf (to sigma 0)
+    rho_p = np.zeros(T)
+    if order == 2 and T >= 3:
+        rho_p[1:T - 1] = 0.5                       # first order at both ends
+    # D1p = (m_prev - m) / r0p, r0p = (lam_{k-1} - lam_k) / h_k = -h_{k-1} / h_k
+    r0p = np.ones(T)
+    if T >= 3:
+        r0p[1:T - 1] = -h[0:T - 2] / h[1:T - 1]
+    p_res = A_p if variant == "bh2" else a_tgt * np.where(np.isinf(h), 0.0, h)
+    p_res = np.where(rho_p == 0.0, 0.0, p_res)     # no inf or NaN where unused
+    r0p = np.where(rho_p == 0.0, 1.0, r0p)
+    gate = np.zeros(T)
+    if corrector and T >= 2:
+        gate[1:] = 1.0
+    c_x_c, A_c, rc0, rc1, r0c = np.zeros(T), np.zeros(T), np.zeros(T), np.zeros(T), np.ones(T)
+    for k in range(1, T):
+        hc = h[k - 1]
+        c_x_c[k] = sigma[k] / sigma[k - 1]
+        A_c[k] = alpha[k] * -np.expm1(-hc)
+        if k == 1 or order == 1:
+            rc1[k] = 0.5                           # the simplified order-1 UniC
+            continue
+        hh = -hc
+        phi1 = np.expm1(hh)
+        b_h = phi1 if variant == "bh2" else hh
+        b1 = (phi1 / hh - 1.0) / b_h
+        b2 = 2.0 * ((phi1 / hh - 1.0) / hh - 0.5) / b_h
+        r0c[k] = -h[k - 2] / h[k - 1]
+        rc0[k] = (b1 - b2) / (1.0 - r0c[k])
+        rc1[k] = b1 - rc0[k]
+    return {name: np.asarray(v, np.float64).astype(np.float32) for name, v in dict(
+        c_x_p=c_x_p, A_p=A_p, rho_p=rho_p, r0p=r0p, p_res=p_res, gate=gate,
+        c_x_c=c_x_c, A_c=A_c, rc0=rc0, rc1=rc1, r0c=r0c).items()}
+
+
+def unipc_sample_loop(model_fn: Callable, shape, sched: DiffusionSchedule, *,
+                      generator=None, noise=None, order: int = 2, corrector: bool = True,
+                      variant: str = "bh2", clip_denoised: bool = True, denoised_fn=None,
+                      return_intermediates: bool = False, dtype=torch.float32):
+    """UniPC (Zhao et al., arXiv:2302.04867): the UniP predictor plus the UniC
+    corrector, which reuses each step's model evaluation to correct the
+    previous update, so one model call per respaced step. `variant` picks
+    B(h): "bh2" = expm1(h), "bh1" = h. `corrector=False` with "bh2" is
+    DPM-Solver++(2M). The JAX body blends the corrected and the predicted
+    state with a 0/1 gate; the gate is known on the host, so the blend is a
+    choice here, which gives the same values. `noise` or `generator` only
+    seed x_T."""
+    x = _init_noise(shape, noise, generator, dtype, sched.timestep_map.device)
+    T = sched.num_timesteps
+    tab = {k: v.tolist() for k, v in unipc_coefficients(sched, order, corrector, variant).items()}
+    x_prev = torch.zeros_like(x)
+    m_prev = m_prev2 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    intermediates = []
+    for k in range(T):
+        i = T - 1 - k
+        t = torch.full((x.shape[0],), i, dtype=torch.int64, device=x.device)
+        model_output, _ = gaussian.model_call(model_fn, x, sched.timestep_map_host[i])
+        m = gaussian.p_mean_variance(sched, model_output, x, t, clip_denoised=clip_denoised,
+                                     denoised_fn=denoised_fn).pred_xstart.float()
+        if tab["gate"][k]:
+            # UniC: correct the k-1 -> k transition with the fresh evaluation m
+            d1c0 = (m_prev2 - m_prev) / tab["r0c"][k]
+            d1ct = m - m_prev
+            x_used = (tab["c_x_c"][k] * x_prev.float()
+                      + tab["A_c"][k] * (m_prev + tab["rc0"][k] * d1c0 + tab["rc1"][k] * d1ct))
+        else:
+            x_used = x.float()
+        # UniP: predict the k -> k+1 transition
+        x_next = tab["c_x_p"][k] * x_used + tab["A_p"][k] * m
+        if tab["rho_p"][k]:
+            d1p = (m_prev - m) / tab["r0p"][k]
+            x_next = x_next + tab["p_res"][k] * tab["rho_p"][k] * d1p
+        x, x_prev, m_prev2, m_prev = x_next.to(dtype), x_used.to(dtype), m_prev, m
+        if return_intermediates:
+            intermediates.append(x)
+    return (x, torch.stack(intermediates)) if return_intermediates else x

@@ -2,9 +2,13 @@
 tensors on one device.
 
 Counterpart of `fast_dit_tpu/diffusion/schedule.py` (`_derive_tables`
-:119-168, the respacing rebuild :226-240 and `timestep_map`). The JAX package
-keeps the tables as an fp32 pytree (`table_dtype=float32`); here they are a
-plain dataclass of fp32 tensors, so the two are bit-equal.
+:119-168, the respacing rebuild :226-240, `timestep_map` and the host fp64
+`alphas_cumprod_fp64` :207,252). The JAX package keeps the tables as an fp32
+pytree (`table_dtype=float32`); here they are a plain dataclass of fp32
+tensors, so the two are bit-equal. Two host tuples sit beside them: the fp64
+alphas_cumprod, from which UniPC's coefficients and the guidance-interval
+mask are built, and `timestep_map_host`, which lets a sampling loop know on
+the host which original timestep each step visits.
 """
 
 from __future__ import annotations
@@ -140,7 +144,9 @@ def _respace(betas: np.ndarray, use_timesteps):
 class DiffusionSchedule:
     """fp32 `(num_timesteps,)` tables on one device, plus the static process
     configuration. `timestep_map` (int64) maps a respaced index to the
-    original-process timestep the model is conditioned on."""
+    original-process timestep the model is conditioned on;
+    `timestep_map_host` holds the same ints and `alphas_cumprod_fp64` the
+    fp64 alphas_cumprod, both as host tuples."""
 
     tables: dict
     timestep_map: torch.Tensor
@@ -149,6 +155,8 @@ class DiffusionSchedule:
     mean_type: MeanType
     var_type: VarType
     loss_type: LossType
+    alphas_cumprod_fp64: tuple = None
+    timestep_map_host: tuple = None
 
     def __getattr__(self, name):
         tables = self.__dict__.get("tables", {})
@@ -168,8 +176,9 @@ class DiffusionSchedule:
             betas, timestep_map = _respace(betas, use_timesteps)
         else:
             timestep_map = list(range(original_num_steps))
+        fp64 = derive_tables(betas)
         tables = {k: torch.tensor(v, dtype=torch.float32, device=device)
-                  for k, v in derive_tables(betas).items()}
+                  for k, v in fp64.items()}
         return cls(
             tables=tables,
             timestep_map=torch.tensor(timestep_map, dtype=torch.int64, device=device),
@@ -178,4 +187,6 @@ class DiffusionSchedule:
             mean_type=MeanType(mean_type),
             var_type=VarType(var_type),
             loss_type=LossType(loss_type),
+            alphas_cumprod_fp64=tuple(float(a) for a in fp64["alphas_cumprod"]),
+            timestep_map_host=tuple(int(t) for t in timestep_map),
         )

@@ -1,16 +1,22 @@
 """Sample images from a DiT: the port's single-device sampler CLI.
 
     python -m fast_dit_torch.sample --model DiT-XL/2 --ckpt random --bf16 --vae-ckpt VAE
+    python -m fast_dit_torch.sample --ckpt random --sampler dpm --num-sampling-steps 20
 
-Counterpart of the repository's `sample.py`: fixed seed, registry model,
-`create_diffusion(str(steps))`, the CFG doubled batch ([z; z] with labels
-[y; null]), `p_sample_loop` (or `ddim_sample_loop`) over `forward_with_cfg`
-with `clip_denoised=False`, then the conditional half is kept, decoded by
-the SD-VAE at /0.18215 and saved as a 2 x 4 grid, `sample.png`, in the
-working directory. The VAE weights are local diffusers files: `--vae-ckpt`,
-else `SD_VAE_PATH`, else `pretrained_models/sd-vae-ft-{--vae}`. Without
-them the latents go to `sample.npy` and a latent preview to `sample.png`,
-as `sample.py` does. The decode is fp32 with TF32 off, as the JAX VAE
+Counterpart of the repository's `sample.py`, with its flags: fixed seed,
+registry model, `create_diffusion(str(steps))` (or "karrasN" with
+`--time-spacing karras`), the CFG doubled batch ([z; z] with labels [y;
+null]) over `forward_with_cfg`, `clip_denoised=False`, then the conditional
+half is kept, decoded by the SD-VAE at /0.18215 and saved as a 2 x 4 grid,
+`sample.png`, in the working directory. `--sampler` picks DDPM, DDIM,
+DPM-Solver++(2M) (`dpm`), UniPC (`unipc`), or, for a flow-matching
+checkpoint (built with `learn_sigma=False`, CFG over all channels), the
+Euler or Heun flow ODE. `--cfg-interval LO HI` guides only the steps whose
+noise level lies in [LO, HI] and runs the conditional half alone elsewhere.
+The VAE weights are local diffusers files: `--vae-ckpt`, else
+`SD_VAE_PATH`, else `pretrained_models/sd-vae-ft-{--vae}`. Without them the
+latents go to `sample.npy` and a latent preview to `sample.png`, as
+`sample.py` does. The decode is fp32 with TF32 off, as the JAX VAE
 computes.
 
 Weights: a local reference-format `.pt` (`--ckpt PATH`; nothing is ever
@@ -18,7 +24,9 @@ downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
 perturbation of every parameter, since the zero-initialised heads would
 otherwise make every output zero.
 
-Runs on the card unless `--device cpu` is given.
+Not ported yet, refused with a message (`check_args`): `--cache-interval`
+> 1, `--tome-ratio`, `--tome-mlp` and `--quantize`. Runs on the card unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from .ckpt import load_torch_checkpoint, load_vae, resolve_vae_path
-from .diffusion import create_diffusion
+from .diffusion import create_diffusion, flow_sample_loop, guidance_interval_fn
 from .models import DiT_models, decode_from_latents
 from .ops.attention import BACKENDS
 from .utils.device import resolve_device, tf32
@@ -38,6 +46,27 @@ from .utils.image import save_image
 
 # the reference demo's labels
 CLASS_LABELS = [207, 360, 387, 974, 88, 979, 417, 279]
+# samplers of a flow-matching checkpoint; the others run the DDPM process
+FLOW_SAMPLERS = ("euler", "heun")
+
+
+def check_args(args, prog: str = "fast_dit_torch.sample") -> None:
+    """Raise SystemExit with a message for what the port does not run yet
+    and for flags that contradict each other."""
+    refused = {
+        "--cache-interval > 1": args.cache_interval > 1,
+        "--tome-ratio > 0": args.tome_ratio > 0,
+        "--tome-mlp": args.tome_mlp,
+        f"--quantize {args.quantize}": args.quantize is not None,
+    }
+    bad = [flag for flag, on in refused.items() if on]
+    if bad:
+        raise SystemExit(f"{prog}: {', '.join(bad)} not ported yet (see ROADMAP.md)")
+    if args.cfg_interval is not None and args.sampler in FLOW_SAMPLERS:
+        raise SystemExit(f"{prog}: --cfg-interval is a band of the DDPM noise levels; "
+                         f"--sampler {args.sampler} integrates the flow ODE")
+    if args.cfg_interval is not None and args.cfg_scale <= 1.0:
+        raise SystemExit(f"{prog}: --cfg-interval needs --cfg-scale > 1")
 
 
 def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
@@ -53,10 +82,12 @@ def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
 
 def build_model(args, device, seed):
     """The DiT of `args` (--model, --image-size, --num-classes, --bf16,
-    --attn-backend, --ckpt) on `device`, in eval mode, weights loaded;
-    `--ckpt random` is the init from `seed` plus `perturb_`."""
+    --attn-backend, --ckpt; a flow --sampler means no learned-sigma
+    channels) on `device`, in eval mode, weights loaded; `--ckpt random` is
+    the init from `seed` plus `perturb_`."""
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
+        learn_sigma=args.sampler not in FLOW_SAMPLERS,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         attn_backend=args.attn_backend, device=device, seed=seed)
     if args.ckpt == "random":
@@ -71,12 +102,17 @@ def build_model(args, device, seed):
     return model.eval()
 
 
+def build_diffusion(args, device):
+    """The respaced sampling process of --num-sampling-steps and
+    --time-spacing."""
+    spacing = "karras" if args.time_spacing == "karras" else ""
+    return create_diffusion(f"{spacing}{args.num_sampling_steps}", device=device)
+
+
 def build(args):
     """(model, diffusion) on `args.device`, weights loaded."""
     device = resolve_device(args.device)
-    model = build_model(args, device, args.seed)
-    diffusion = create_diffusion(str(args.num_sampling_steps), device=device)
-    return model, diffusion
+    return build_model(args, device, args.seed), build_diffusion(args, device)
 
 
 def build_vae(args, device, block_out_channels=None):
@@ -96,10 +132,41 @@ def decode(vae, latents: torch.Tensor) -> torch.Tensor:
         return decode_from_latents(vae, latents.to(next(vae.parameters()).device))
 
 
-@torch.inference_mode()
-def sample_latents(args, model, diffusion) -> torch.Tensor:
-    """The sampling chain: (len(CLASS_LABELS), C, L, L) fp32 latents on the
-    model's device."""
+def make_model_fn(args, model, diffusion, y: torch.Tensor):
+    """model_fn(x, t) of the chain for the conditional labels y (n,): at
+    --cfg-scale <= 1 the model itself on n latents; else `forward_with_cfg`
+    on the doubled batch with labels [y; null] (a flow model guides all its
+    channels), and with --cfg-interval only inside the band, the
+    conditional half alone elsewhere."""
+    if args.cfg_scale <= 1.0:
+        return lambda x, t: model(x, t, y)
+    yy = torch.cat([y, torch.full_like(y, args.num_classes)])
+    kw = {"guidance_channels": model.in_channels} if args.sampler in FLOW_SAMPLERS else {}
+    cfg_fn = lambda x, t: model.forward_with_cfg(x, t, yy, args.cfg_scale, **kw)
+    if args.cfg_interval is None:
+        return cfg_fn
+    return guidance_interval_fn(cfg_fn, lambda x, t: model(x, t, y), diffusion.schedule,
+                                *args.cfg_interval)
+
+
+def run_chain(args, diffusion, model_fn, z: torch.Tensor, generator: torch.Generator):
+    """--sampler's chain from x_T = z; DDPM and DDIM draw their step noise
+    from `generator`, the others are deterministic."""
+    if args.sampler in FLOW_SAMPLERS:
+        return flow_sample_loop(model_fn, z.shape, num_steps=args.num_sampling_steps,
+                                method=args.sampler, noise=z)
+    if args.sampler == "dpm":
+        return diffusion.dpm_solver_sample_loop(model_fn, z.shape, noise=z,
+                                                clip_denoised=False)
+    if args.sampler == "unipc":
+        return diffusion.unipc_sample_loop(model_fn, z.shape, noise=z, clip_denoised=False)
+    loop = diffusion.p_sample_loop if args.sampler == "ddpm" else diffusion.ddim_sample_loop
+    return loop(model_fn, z.shape, noise=z, generator=generator, clip_denoised=False)
+
+
+def sampling_inputs(args, model):
+    """(z, y, generator): x_T of the chain (doubled under CFG), the
+    conditional labels and the generator seeded with --seed that drew z."""
     device = model.pos_embed.device
     g = torch.Generator(device=device).manual_seed(args.seed)
     n = len(CLASS_LABELS)
@@ -107,18 +174,20 @@ def sample_latents(args, model, diffusion) -> torch.Tensor:
     z = torch.randn(n, model.in_channels, latent, latent, generator=g, device=device)
     if args.cfg_scale > 1.0:
         z = torch.cat([z, z], dim=0)
-        y = torch.tensor(CLASS_LABELS + [args.num_classes] * n, device=device)
-        model_fn = lambda x, t: model.forward_with_cfg(x, t, y, args.cfg_scale)
-    else:
-        # at cfg <= 1 sample the n latents directly
-        y = torch.tensor(CLASS_LABELS, device=device)
-        model_fn = lambda x, t: model(x, t, y)
-    loop = diffusion.p_sample_loop if args.sampler == "ddpm" else diffusion.ddim_sample_loop
-    samples = loop(model_fn, z.shape, noise=z, generator=g, clip_denoised=False)
-    return samples[:n]
+    return z, torch.tensor(CLASS_LABELS, device=device), g
+
+
+@torch.inference_mode()
+def sample_latents(args, model, diffusion) -> torch.Tensor:
+    """The sampling chain: (len(CLASS_LABELS), C, L, L) fp32 latents on the
+    model's device."""
+    z, y, g = sampling_inputs(args, model)
+    model_fn = make_model_fn(args, model, diffusion, y)
+    return run_chain(args, diffusion, model_fn, z, g)[:len(CLASS_LABELS)]
 
 
 def main(args) -> None:
+    check_args(args)
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -140,6 +209,32 @@ def main(args) -> None:
           "saved raw latents to sample.npy and a latent preview to sample.png")
 
 
+def add_sampler_flags(parser) -> None:
+    """The JAX samplers' flags, shared with `sample_ddp`."""
+    parser.add_argument("--sampler", type=str, default="ddpm",
+                        choices=["ddpm", "ddim", "dpm", "unipc", *FLOW_SAMPLERS],
+                        help="dpm: DPM-Solver++(2M), unipc: UniPC (both deterministic, for "
+                             "10-25 steps); euler/heun: the flow ODE of an --objective flow "
+                             "checkpoint")
+    parser.add_argument("--time-spacing", type=str, default="uniform",
+                        choices=["uniform", "karras"],
+                        help="karras: the retained timesteps at Karras sigma positions")
+    parser.add_argument("--cfg-interval", type=float, nargs=2, default=None,
+                        metavar=("SIGMA_LO", "SIGMA_HI"),
+                        help="guide only where sigma(t) = sqrt((1-abar)/abar) is in "
+                             "[LO, HI]; elsewhere the conditional half alone")
+    parser.add_argument("--cache-interval", type=int, default=1,
+                        help="FORA layer caching: only 1 (off) is ported")
+    parser.add_argument("--cache-schedule", type=str, default="uniform",
+                        choices=["uniform", "logsnr", "abar"],
+                        help="placement of cache refreshes (no effect at --cache-interval 1)")
+    parser.add_argument("--tome-ratio", type=float, default=0.0,
+                        help="token merging: only 0 (off) is ported")
+    parser.add_argument("--tome-mlp", action="store_true", help="not ported yet")
+    parser.add_argument("--quantize", type=str, default=None, choices=["w8a8"],
+                        help="not ported yet")
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # reference-compatible flags
@@ -159,7 +254,7 @@ def parse_args(argv=None):
     parser.add_argument("--attn-backend", type=str, default="auto", choices=BACKENDS,
                         help="auto: the CUDA kernel on the card; einsum: the plain twin")
     parser.add_argument("--bf16", action="store_true", help="bf16 activations")
-    parser.add_argument("--sampler", type=str, default="ddpm", choices=["ddpm", "ddim"])
+    add_sampler_flags(parser)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)

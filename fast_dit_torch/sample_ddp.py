@@ -7,7 +7,9 @@ Counterpart of the repository's `sample_ddp.py`, with its flags and outputs:
 per-process seed `global_seed * world + rank`, the total rounded up to a
 multiple of the global batch, labels drawn uniformly in [0, num_classes),
 CFG only when `--cfg-scale` > 1 (doubled batch, null label `num_classes`),
-DDPM or DDIM with `clip_denoised=False`, the SD-VAE decode at /0.18215,
+the chain of `--sampler` (DDPM, DDIM, DPM-Solver++, UniPC, or the flow ODE
+for a flow checkpoint; `--time-spacing`, `--cfg-interval`) with
+`clip_denoised=False`, as `sample.py` runs it, the SD-VAE decode at /0.18215,
 uint8 quantisation `clamp(127.5 x + 128, 0, 255)`, rank-strided
 `{index:06d}.png` files written on a thread pool, and after a barrier rank
 0 packs the first `--num-fid-samples` PNGs into `{sample_dir}.npz` (one
@@ -23,10 +25,9 @@ the first three latent channels are quantised instead, as `sample_ddp.py`
 does. `--ckpt random` is the sampler's seeded init plus its 0.02
 perturbation, the same weights on every rank.
 
-Not ported yet, refused with a message: `--sampler dpm|unipc|euler|heun`,
-`--time-spacing karras`, `--cfg-interval`, `--cache-interval` > 1,
-`--tome-ratio` > 0 and `--quantize`. Runs on the card unless `--device cpu`
-is given.
+Not ported yet, refused with a message (`sample.check_args`):
+`--cache-interval` > 1, `--tome-ratio` > 0, `--tome-mlp` and `--quantize`.
+Runs on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .diffusion import create_diffusion
 from .models import DiT_models, decode_from_latents
 from .ops.attention import BACKENDS
-from .sample import build_model, build_vae
+from .sample import (add_sampler_flags, build_diffusion, build_model, build_vae,
+                     make_model_fn, run_chain)
+from .sample import check_args as check_sampler_args
 from .utils.device import resolve_device, tf32, world_and_rank
 from .utils.image import decode_png, encode_png
 
@@ -53,19 +55,9 @@ __all__ = ["build_parser", "check_args", "quantize", "generate",
 
 
 def check_args(args) -> None:
-    """Raise SystemExit with a message for what the port does not run yet."""
-    refused = {
-        f"--sampler {args.sampler}": args.sampler not in ("ddpm", "ddim"),
-        "--time-spacing karras": args.time_spacing != "uniform",
-        "--cfg-interval": args.cfg_interval is not None,
-        "--cache-interval > 1": args.cache_interval > 1,
-        "--tome-ratio > 0": args.tome_ratio > 0,
-        f"--quantize {args.quantize}": args.quantize is not None,
-    }
-    bad = [flag for flag, on in refused.items() if on]
-    if bad:
-        raise SystemExit(f"fast_dit_torch.sample_ddp: {', '.join(bad)} not ported yet "
-                         f"(see ROADMAP.md)")
+    """Raise SystemExit with a message for what the port does not run yet
+    and for flags that do not fit together."""
+    check_sampler_args(args, prog="fast_dit_torch.sample_ddp")
     if args.cfg_scale < 1.0:
         raise SystemExit("fast_dit_torch.sample_ddp: --cfg-scale must be >= 1.0")
 
@@ -87,12 +79,8 @@ def generate(args, model, diffusion, vae, generator: torch.Generator) -> torch.T
     y = torch.randint(0, args.num_classes, (n,), generator=generator, device=device)
     if args.cfg_scale > 1.0:
         z = torch.cat([z, z], dim=0)
-        y = torch.cat([y, torch.full_like(y, args.num_classes)])
-        model_fn = lambda x, t: model.forward_with_cfg(x, t, y, args.cfg_scale)
-    else:
-        model_fn = lambda x, t: model(x, t, y)
-    loop = diffusion.p_sample_loop if args.sampler == "ddpm" else diffusion.ddim_sample_loop
-    samples = loop(model_fn, z.shape, noise=z, generator=generator, clip_denoised=False)[:n]
+    model_fn = make_model_fn(args, model, diffusion, y)
+    samples = run_chain(args, diffusion, model_fn, z, generator)[:n]
     samples = decode_from_latents(vae, samples) if vae is not None else samples[:, :3]
     return quantize(samples)
 
@@ -136,7 +124,7 @@ def main(args) -> dict:
     with tf32(args.tf32):
         # one set of weights on every rank: the init seed is fixed
         model = build_model(args, device, seed=0)
-        diffusion = create_diffusion(str(args.num_sampling_steps), device=device)
+        diffusion = build_diffusion(args, device)
         vae = build_vae(args, device, tuple(int(c) for c in args.vae_channels.split(",")))
         if vae is None:
             print("WARNING: no SD-VAE weights found; saving latent-preview PNGs "
@@ -217,24 +205,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="auto: the CUDA kernel on the card; einsum: the plain twin")
     parser.add_argument("--io-threads", type=int, default=16)
     parser.add_argument("--bf16", action="store_true", help="bf16 DiT activations")
-    parser.add_argument("--sampler", type=str, default="ddpm",
-                        choices=["ddpm", "ddim", "dpm", "unipc", "euler", "heun"],
-                        help="ddpm or ddim; the others are not ported yet")
-    parser.add_argument("--time-spacing", type=str, default="uniform",
-                        choices=["uniform", "karras"], help="karras: not ported yet")
-    parser.add_argument("--cfg-interval", type=float, nargs=2, default=None,
-                        metavar=("SIGMA_LO", "SIGMA_HI"), help="not ported yet")
-    parser.add_argument("--cache-interval", type=int, default=1,
-                        help="FORA layer caching: only 1 (off) is ported")
-    parser.add_argument("--cache-schedule", type=str, default="uniform",
-                        choices=["uniform", "logsnr", "abar"],
-                        help="placement of cache refreshes (no effect at --cache-interval 1)")
-    parser.add_argument("--tome-ratio", type=float, default=0.0,
-                        help="token merging: only 0 (off) is ported")
-    parser.add_argument("--tome-mlp", action="store_true",
-                        help="token-merge the MLP too (no effect at --tome-ratio 0)")
-    parser.add_argument("--quantize", type=str, default=None, choices=["w8a8"],
-                        help="not ported yet")
+    add_sampler_flags(parser)
     # the port's own
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser

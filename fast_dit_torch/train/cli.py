@@ -10,6 +10,10 @@ on (the "nothing" policy), the 1000-step learned-sigma eps objective,
 uniform t, label dropout 0.1, AdamW lr 1e-4 wd 0, EMA 0.9999 warm-started
 as a copy. `--mixed-precision` stores bf16 parameters behind an fp32 master;
 `--fused-optimizer` adds bf16 mu and runs the fused AdamW + EMA kernel.
+`--objective flow` trains the velocity-matching loss on `--flow-path` with
+a DiT built with `learn_sigma=False`; `--schedule-sampler
+loss-second-moment` draws eps timesteps by their loss history (not with
+flow, which draws continuous t).
 
 Checkpoints are `torch.save` files in the reference trainer's layout,
 `{"model", "ema", "opt", "args"}` under the reference torch names, every
@@ -17,9 +21,8 @@ Checkpoints are `torch.save` files in the reference trainer's layout,
 dict alone. Runs on the card unless `--device cpu` is given.
 
 Not ported yet, refused with a message: `--resume`, `--tp`, `--fsdp`,
-`--ep`, `--native-loader`, `--objective flow`, `--schedule-sampler
-loss-second-moment`, `--remat-policy attn|attn_mlp`, `--nu-dtype bf16` and
-`--factored-nu`. `--scan-unroll` is accepted and has no effect (the blocks
+`--ep`, `--native-loader`, `--remat-policy attn|attn_mlp`, `--nu-dtype bf16`
+and `--factored-nu`. `--scan-unroll` is accepted and has no effect (the blocks
 are a Python loop, not a scan).
 """
 
@@ -33,7 +36,7 @@ import time
 import torch
 
 from ..data import FeatureDataset, feature_batches, synthetic_features
-from ..diffusion import create_diffusion
+from ..diffusion import create_diffusion, create_named_schedule_sampler
 from ..models import REMAT_POLICIES, DiT_models
 from ..ops.attention import BACKENDS
 from ..ops.fused_update import FusedAdamWEmaState
@@ -53,8 +56,6 @@ def check_args(args) -> None:
         "--fsdp": args.fsdp,
         "--ep > 1": args.ep > 1,
         "--native-loader": args.native_loader,
-        "--objective flow": args.objective != "eps",
-        f"--schedule-sampler {args.schedule_sampler}": args.schedule_sampler != "uniform",
         f"--remat-policy {args.remat_policy}": (not args.no_remat
                                                 and args.remat_policy not in REMAT_POLICIES),
         "--nu-dtype bf16": args.nu_dtype != "fp32",
@@ -64,6 +65,9 @@ def check_args(args) -> None:
     if bad:
         raise SystemExit(f"fast_dit_torch.train: {', '.join(bad)} not ported yet "
                          f"(see ROADMAP.md)")
+    if args.objective == "flow" and args.schedule_sampler != "uniform":
+        raise SystemExit("fast_dit_torch.train: --schedule-sampler is discrete-time; "
+                         "--objective flow draws continuous t")
     if args.image_size % 8:
         raise SystemExit("fast_dit_torch.train: image size must be divisible by 8")
     if args.global_batch_size % args.grad_accum:
@@ -73,22 +77,30 @@ def check_args(args) -> None:
 
 def build(args):
     """(model, diffusion, state, train_step) on `args.device`: the seeded
-    model, the 1000-step training process, the optimizer route and the
-    step, whose draws come from a generator seeded with --global-seed."""
+    model (a flow model predicts the velocity, with no learned-sigma
+    channels), the 1000-step training process, the optimizer route, the
+    timestep sampler and the step, whose draws come from a generator seeded
+    with --global-seed."""
     device = resolve_device(args.device)
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
+        learn_sigma=args.objective == "eps",
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         attn_backend=args.attn_backend, remat=not args.no_remat,
         remat_policy=args.remat_policy, device=device, seed=args.global_seed)
     model.train()
     diffusion = create_diffusion("", device=device)
+    sampler_state = (None if args.schedule_sampler == "uniform" else
+                     create_named_schedule_sampler(args.schedule_sampler,
+                                                   diffusion.num_timesteps, device))
     state = create_train_state(model, lr=None if args.fused_optimizer else args.lr,
                                mixed_precision=args.mixed_precision,
-                               fused_optimizer=args.fused_optimizer)
+                               fused_optimizer=args.fused_optimizer,
+                               sampler_state=sampler_state)
     generator = torch.Generator(device=device).manual_seed(args.global_seed)
     train_step = make_train_step(model, diffusion.schedule, ema_decay=args.ema_decay,
                                  grad_accum=args.grad_accum, lr=args.lr,
+                                 objective=args.objective, flow_path=args.flow_path,
                                  generator=generator)
     return model, diffusion, state, train_step
 
@@ -253,12 +265,14 @@ def parse_args(argv=None):
     parser.add_argument("--scan-unroll", type=int, default=1,
                         help="accepted for compatibility; no effect in the port")
     parser.add_argument("--objective", type=str, default="eps", choices=["eps", "flow"],
-                        help="only 'eps' is ported")
+                        help="eps: the learned-sigma DDPM loss; flow: velocity matching "
+                             "(a learn_sigma=False DiT, sampled with euler/heun)")
     parser.add_argument("--flow-path", type=str, default="linear", choices=["linear", "gvp"])
     parser.add_argument("--synthetic-data", action="store_true")
     parser.add_argument("--schedule-sampler", type=str, default="uniform",
                         choices=["uniform", "loss-second-moment"],
-                        help="only 'uniform' is ported")
+                        help="timestep draw of the eps objective: uniform, or by each "
+                             "timestep's loss history")
     parser.add_argument("--mixed-precision", action="store_true",
                         help="bf16 params + fp32 master weights")
     parser.add_argument("--fused-optimizer", action="store_true",

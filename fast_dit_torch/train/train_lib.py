@@ -1,11 +1,16 @@
 """Training step: loss, gradients, AdamW and EMA (counterpart of
 `fast_dit_tpu/train/train_lib.py:42-287`).
 
-The step draws uniform timesteps, the noise and the label drops, computes
-the per-example learned-sigma hybrid loss (`training_losses`), takes its
-mean and backpropagates; with `grad_accum > 1` the batch is split into
-microbatches and their gradients averaged (`:244-265`). Then one of three
-optimizer routes updates the model's parameters in place:
+The step draws timesteps, the noise and the label drops, computes the
+per-example loss, takes its (weighted) mean and backpropagates; with
+`grad_accum > 1` the batch is split into microbatches and their gradients
+averaged (`:244-265`). The objective is "eps" (the learned-sigma hybrid
+loss, `training_losses`, discrete t) or "flow" (velocity matching,
+`flow_training_losses`, t ~ U[0, 1) with unit weights; the model must have
+`learn_sigma=False`). With a `LossSecondMomentState` in the train state, eps
+draws (t, importance weights) from it and folds each microbatch's
+per-example losses back into it, microbatch after microbatch. Then one of
+three optimizer routes updates the model's parameters in place:
 
 - default: `torch.optim.AdamW` over fp32 parameters (optax.adamw in JAX,
   the same formula with weight decay 0), then `update_ema`;
@@ -17,11 +22,11 @@ optimizer routes updates the model's parameters in place:
 JAX threads an immutable state through a jitted step; here the state is
 updated in place and the step returns only its metrics (0-d tensors on the
 device, so nothing waits for the card). Random draws come from one
-`torch.Generator` on the model's device: t, then the noise, then the label
-drops, per microbatch; `draws=` injects them instead (for the tests).
+`torch.Generator` on the model's device: t (and the weights), then the
+noise, then the label drops, per microbatch; `draws=` injects them instead
+(for the tests).
 
-The flow objective, the loss-second-moment timestep sampler and the MoE
-auxiliary losses are not ported yet: the step refuses them.
+The MoE auxiliary losses are not ported yet: the step refuses MoE models.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from ..diffusion.flow import flow_training_losses
 from ..diffusion.gaussian import training_losses
+from ..diffusion.timestep_samplers import sample_timesteps, update_with_losses
 from ..ops.fused_update import (FusedAdamWEmaState, fused_adamw_ema_apply,
                                 fused_adamw_ema_init)
 from .mixed_precision import get_master_params, masterize
@@ -47,6 +54,7 @@ class TrainState:
     model: nn.Module                 # holds the parameters (fp32, or bf16)
     ema: Dict[str, torch.Tensor]     # fp32, by parameter name
     opt: Any                         # AdamW, MasterWeightsOptimizer or FusedAdamWEmaState
+    sampler_state: Any = None        # LossSecondMomentState, or None for uniform t
 
     def params(self) -> List[torch.Tensor]:
         return list(self.model.parameters())
@@ -67,7 +75,7 @@ def _adamw(params, lr, weight_decay):
 
 def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
                        weight_decay: Optional[float] = None, mixed_precision: bool = False,
-                       fused_optimizer: bool = False) -> TrainState:
+                       fused_optimizer: bool = False, sampler_state=None) -> TrainState:
     """Optimizer state and a warm-started EMA (an exact copy) for `model`.
 
     With `mixed_precision` or `fused_optimizer` the model's parameters are
@@ -75,7 +83,8 @@ def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
     values, as in JAX (`train_lib.py:81-117`). The AdamW routes take `lr`
     (default 1e-4) and `weight_decay` (default 0) here and keep fp32
     moments; the fused route (bf16 mu) takes them from `make_train_step`
-    and refuses them here, so that the two cannot disagree."""
+    and refuses them here, so that the two cannot disagree. `sampler_state`
+    is the timestep sampler's state (None: uniform t)."""
     if fused_optimizer and (lr is not None or weight_decay is not None):
         raise ValueError("fused_optimizer=True takes lr and weight_decay from "
                          "make_train_step(lr=..., weight_decay=...), not from here")
@@ -95,7 +104,7 @@ def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
         opt = _adamw(params, lr, weight_decay)
     source = get_master_params(opt) or params
     ema = {n: p.detach().float().clone() for n, p in zip(names, source)}
-    return TrainState(step=0, model=model, ema=ema, opt=opt)
+    return TrainState(step=0, model=model, ema=ema, opt=opt, sampler_state=sampler_state)
 
 
 def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -109,42 +118,54 @@ def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
                     grad_accum: int = 1, log_grad_norm: bool = False, lr: float = 1e-4,
                     weight_decay: float = 0.0, objective: str = "eps",
-                    sampler_state=None, generator: Optional[torch.Generator] = None):
+                    flow_path: str = "linear", generator: Optional[torch.Generator] = None):
     """Build `train_step(state, batch, draws=None) -> metrics`.
 
     batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels} on the
     model's device. `draws`, if given, is a list of `grad_accum` dicts
-    {"t", "noise", and optionally "force_drop_ids"} used instead of the
+    {"t" (int timesteps, or fp32 times in [0, 1) for flow), "noise", and
+    optionally "weights" and "force_drop_ids"} used instead of the
     generator. `lr` and `weight_decay` serve the fused route; the AdamW
     routes take them from `create_train_state`.
     """
-    if objective != "eps":
-        raise NotImplementedError(f"objective {objective!r} is not ported yet (eps only)")
-    if sampler_state is not None:
-        raise NotImplementedError("the loss-second-moment timestep sampler is not ported "
-                                  "yet (uniform t only)")
+    if objective not in ("eps", "flow"):
+        raise ValueError(f"unknown objective {objective!r}")
     if getattr(model, "moe_experts", 0):
         raise NotImplementedError("MoE models are not ported yet")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
-    def micro_step(x, y, draw):
+    def micro_step(x, y, draw, sampler_state):
         B = x.shape[0]
+        weights = None
         if draw is None:
-            t = torch.randint(0, schedule.num_timesteps, (B,), generator=generator,
-                              device=x.device)
+            if objective == "flow":
+                t = torch.rand((B,), generator=generator, device=x.device)
+            elif sampler_state is not None:
+                t, weights = sample_timesteps(sampler_state, generator, B)
+            else:
+                t = torch.randint(0, schedule.num_timesteps, (B,), generator=generator,
+                                  device=x.device)
             noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             force = None
         else:
             t, noise, force = draw["t"], draw["noise"], draw.get("force_drop_ids")
+            weights = draw.get("weights")
 
         def model_fn(x_t, t_model):
             return model(x_t, t_model, y, train=True, force_drop_ids=force,
                          generator=generator)
 
-        terms = training_losses(schedule, model_fn, x, t, noise)
-        terms["loss"].mean().backward()
-        return {k: v.detach().mean() for k, v in terms.items()}
+        if objective == "flow":
+            terms = flow_training_losses(model_fn, x, t, noise, path=flow_path)
+        else:
+            terms = training_losses(schedule, model_fn, x, t, noise)
+        per_example = terms["loss"]
+        # unit weights (uniform t, flow) leave the mean as it is
+        (per_example.mean() if weights is None else (weights * per_example).mean()).backward()
+        if sampler_state is not None:
+            sampler_state = update_with_losses(sampler_state, t, per_example.detach())
+        return {k: v.detach().mean() for k, v in terms.items()}, sampler_state
 
     def train_step(state: TrainState, batch, draws=None) -> Dict[str, torch.Tensor]:
         params = state.params()
@@ -157,9 +178,16 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         mb = B // grad_accum
         if draws is not None and len(draws) != grad_accum:
             raise ValueError(f"draws holds {len(draws)} microbatches, expected {grad_accum}")
-        per_micro = [micro_step(x[i * mb:(i + 1) * mb], y[i * mb:(i + 1) * mb],
-                                None if draws is None else draws[i])
-                     for i in range(grad_accum)]
+        if objective == "flow" and state.sampler_state is not None:
+            raise ValueError("the loss-second-moment sampler draws discrete timesteps; flow "
+                             "matching draws continuous t")
+        per_micro = []
+        for i in range(grad_accum):
+            # each microbatch sees the sampler state the previous one updated
+            m, state.sampler_state = micro_step(x[i * mb:(i + 1) * mb], y[i * mb:(i + 1) * mb],
+                                                None if draws is None else draws[i],
+                                                state.sampler_state)
+            per_micro.append(m)
         grads = [p.grad for p in params]
         if grad_accum > 1:
             torch._foreach_div_(grads, float(grad_accum))

@@ -44,7 +44,9 @@ def test_port_sources_exist():
                  "fast_dit_torch/parallel/__init__.py", "fast_dit_torch/parallel/sequence.py",
                  "fast_dit_torch/models/vae.py", "fast_dit_torch/ckpt/vae_import.py",
                  "fast_dit_torch/data/imagenet.py", "fast_dit_torch/extract_features.py",
-                 "fast_dit_torch/sample_ddp.py"):
+                 "fast_dit_torch/sample_ddp.py", "fast_dit_torch/diffusion/flow.py",
+                 "fast_dit_torch/diffusion/guidance_interval.py",
+                 "fast_dit_torch/diffusion/timestep_samplers.py"):
         assert must in rel
 
 

@@ -97,15 +97,23 @@ def test_quantize_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sampler", "dpm"], ["--sampler", "unipc"], ["--sampler", "euler"], ["--sampler", "heun"],
-    ["--time-spacing", "karras"], ["--cfg-interval", "0.19", "1.61"],
+    # the samplers, Karras spacing and the guidance interval are ported (their
+    # runs: tests/test_torch_samplers.py); the first six cases now pair each
+    # with a flag that stays unported, which must still be refused by name
+    ["--sampler", "dpm", "--cache-interval", "2"], ["--sampler", "unipc", "--tome-ratio", "0.5"],
+    ["--sampler", "euler", "--quantize", "w8a8"], ["--sampler", "heun", "--tome-mlp"],
+    ["--time-spacing", "karras", "--cache-interval", "3"],
+    ["--cfg-interval", "0.19", "1.61", "--tome-mlp"],
     ["--cache-interval", "2"], ["--tome-ratio", "0.5"], ["--quantize", "w8a8"],
 ])
 def test_flags_not_ported_are_refused(tmp_path, flags):
     args = cli.build_parser().parse_args(["--device", "cpu", "--ckpt", "random",
                                           "--sample-dir", str(tmp_path), *flags])
-    with pytest.raises(SystemExit, match=r"not ported yet \(see ROADMAP.md\)"):
+    with pytest.raises(SystemExit, match=r"not ported yet \(see ROADMAP.md\)") as e:
         cli.main(args)
+    unported = [f for f in flags if f in ("--cache-interval", "--tome-ratio", "--tome-mlp",
+                                          "--quantize")]
+    assert all(f in str(e.value) for f in unported) and "--sampler" not in str(e.value)
     assert os.listdir(tmp_path) == []
 
 

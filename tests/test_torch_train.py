@@ -307,7 +307,10 @@ def test_cli_trains_on_cpu_in_process_and_writes_a_loadable_checkpoint(tmp_path)
 
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--tp", "2"], ["--fsdp"], ["--ep", "2"], ["--native-loader"],
-    ["--objective", "flow"], ["--schedule-sampler", "loss-second-moment"],
+    # flow and loss-second-moment are ported; these two cases now refuse
+    # what stays unported alongside them
+    ["--objective", "flow", "--resume"],
+    ["--schedule-sampler", "loss-second-moment", "--remat-policy", "attn_mlp"],
     ["--remat-policy", "attn"], ["--nu-dtype", "bf16"], ["--factored-nu"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):

@@ -31,7 +31,8 @@ nonzero:
                   output and LSE).
  5. fused_update: the fused AdamW + EMA kernel against `_update_math` over the
                   whole DiT-XL/2 parameter tree for 3 steps, with the fused
-                  `torch.optim.AdamW` step timed beside it.
+                  `torch.optim.AdamW` step timed beside it; then its bf16-nu
+                  instantiation the same way.
  6. model:        full DiT-XL/2 fp32, one forward_with_cfg through the kernel and
                   through the einsum plain version on the card.
  7. vae:          the full-width SD-VAE (83.7 M parameters) from a random diffusers
@@ -53,9 +54,12 @@ nonzero:
                   torch.cuda.set_sync_debug_mode("error") (no host sync in a step),
                   with s/step, images/s, model evaluations, kernel-1 launches exactly
                   depth x evaluations and, for the interval, the guided steps exactly
-                  `guided_steps_korder`'s; the DPM chain also through `sample_latents`
-                  and the fp32 decode; and first each new loop on a small fp32 model,
-                  card against CPU.
+                  `guided_steps_korder`'s; the FORA layer cache: DDPM 50 with
+                  --cache-interval 2, DDIM 50 with interval 3 and --cache-schedule
+                  logsnr, DDPM 50 with the guidance interval and interval 2, kernel-1
+                  launches exactly depth x refresh steps; the DPM chain also through
+                  `sample_latents` and the fp32 decode; and first each new loop on a
+                  small fp32 model, card against CPU.
 10. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
                   VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
                   forward kernel launches exactly depth x steps x batches times.
@@ -69,8 +73,17 @@ nonzero:
                   (forward, run again by remat) and depth x steps (backward); then
                   the same with --fused-optimizer, one fused-update launch per
                   parameter leaf per step, with --objective flow and with
-                  --schedule-sampler loss-second-moment, these two under
-                  torch.cuda.set_sync_debug_mode("error") (no host sync in a step).
+                  --schedule-sampler loss-second-moment, with --no-remat, with the remat
+                  policies attn and attn_mlp, and with --fused-optimizer and a bf16 or a
+                  factored nu, these seven under torch.cuda.set_sync_debug_mode("error")
+                  (no host sync in a step); each with the optimizer's device time and
+                  the peak of allocated memory; first a small model card vs CPU under
+                  each remat policy and nu kind.
+12b. resume:      DiT-XL/2's width at depth 4, every optimizer route and nu kind with
+                  warmed-up loss-second-moment t: 2 steps, save, 2 more, against a
+                  state from another seed that restores the file and runs the same 2
+                  batches (every tensor equal); file size, save and restore seconds;
+                  then the trainer CLI's own --resume (DiT-S/2).
 13. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
                   shard, at a ragged Sq != Sk and at logits past the clamp, with its
@@ -93,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -119,7 +133,7 @@ from fast_dit_torch.ops.ring_attention import (  # noqa: E402
 from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward  # noqa: E402
 from fast_dit_torch import sample as cli  # noqa: E402
 from fast_dit_torch import sample_ddp  # noqa: E402
-from fast_dit_torch.ckpt import load_vae  # noqa: E402
+from fast_dit_torch.ckpt import CheckpointManager, load_vae  # noqa: E402
 from fast_dit_torch.data import FeatureDataset, feature_batches  # noqa: E402
 from fast_dit_torch.extract_features import encode_images, feature_dirs, write_features  # noqa: E402
 from fast_dit_torch.models.vae import AttnBlock  # noqa: E402
@@ -127,8 +141,12 @@ from fast_dit_torch.utils.device import tf32  # noqa: E402
 from fast_dit_torch.utils.image import decode_png, save_image  # noqa: E402
 from fast_dit_torch.train import cli as train_cli  # noqa: E402
 from fast_dit_torch.train import create_train_state, make_train_step  # noqa: E402
-from fast_dit_torch.diffusion import (create_diffusion, flow_sample_loop,  # noqa: E402
-                                      guidance_interval_fn, guided_steps_korder)
+from fast_dit_torch.train import get_master_params, update_ema  # noqa: E402
+from fast_dit_torch.diffusion.gaussian import training_losses  # noqa: E402
+from fast_dit_torch.diffusion import (LossSecondMomentState, cache_refresh_mask,  # noqa: E402
+                                      create_diffusion, flow_sample_loop,
+                                      guidance_interval_cached_fns, guidance_interval_fn,
+                                      guided_steps_korder)
 
 # H100 SXM data sheet: HBM bytes/s, dense peak FLOP/s by input type ("tf32":
 # fp32 inputs on the tensor cores)
@@ -182,13 +200,43 @@ SAMPLER_CHAINS = [
                       "--time-spacing", "karras"], 10),
     ("ddpm_interval", ["--sampler", "ddpm", "--num-sampling-steps", "50", "--cfg-interval",
                        *map(str, CFG_INTERVAL)], 50),
+    # the FORA layer cache: kernel 1 runs on the refresh steps only
+    ("ddpm_cache2", ["--sampler", "ddpm", "--num-sampling-steps", "50",
+                     "--cache-interval", "2"], 50),
+    ("ddim_cache3_logsnr", ["--sampler", "ddim", "--num-sampling-steps", "50",
+                            "--cache-interval", "3", "--cache-schedule", "logsnr"], 50),
+    ("ddpm_interval_cache2", ["--sampler", "ddpm", "--num-sampling-steps", "50",
+                              "--cfg-interval", *map(str, CFG_INTERVAL),
+                              "--cache-interval", "2"], 50),
     ("flow_euler", ["--sampler", "euler", "--num-sampling-steps", "20"], 20),
     ("flow_heun", ["--sampler", "heun", "--num-sampling-steps", "10"], 20),  # 2 per step
 ]
 FLOW_TRAIN_STEPS = LSM_TRAIN_STEPS = 3
+# (name, the trainer CLI's flags): the remat policies (and none, for peak
+# memory) and the fused route's bf16 and factored nu, 3 timed steps after 2,
+# each under sync debug mode "error"
+TRAIN_MORE = [("no_remat", ["--no-remat"]),
+              ("remat_attn", ["--remat-policy", "attn"]),
+              ("remat_attn_mlp", ["--remat-policy", "attn_mlp"]),
+              ("fused_nu_bf16", ["--fused-optimizer", "--nu-dtype", "bf16"]),
+              ("fused_factored_nu", ["--fused-optimizer", "--factored-nu"])]
+MORE_TRAIN_STEPS = 3
+# the resume check: DiT-XL/2's width at depth 4 (28 blocks of fp32 model, EMA,
+# mu and nu make an 11 GB file per route), batch 16, every route and nu kind
+RESUME_DEPTH, RESUME_BATCH = 4, 16
+RESUME_ROUTES = [("adamw", {}), ("mixed_precision", {"mixed_precision": True}),
+                 ("fused", {"fused_optimizer": True}),
+                 ("fused_nu_bf16", {"fused_optimizer": True, "nu_dtype": torch.bfloat16}),
+                 ("fused_factored_nu", {"fused_optimizer": True, "factored_nu": True})]
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -419,19 +467,23 @@ def phase_kernel_bwd():
     return main
 
 
-def phase_fused_update(steps=3):
+def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None):
     """The fused kernel vs `_update_math` over DiT-XL/2's parameter tree
-    (bf16 params and mu, fp32 nu, master and EMA); returns the row."""
+    (bf16 params and mu, fp32 or bf16 nu, fp32 master and EMA); returns the
+    row. The fp32-nu run also times the library yardstick, which the bf16
+    run reuses (`library_ms`)."""
     with torch.device("meta"):
         shapes = [p.shape for p in DiT_models["DiT-XL/2"](device="meta").parameters()]
     g = torch.Generator(device="cuda").manual_seed(3)
     init = [(0.02 * torch.randn(s, generator=g, device="cuda")).to(torch.bfloat16)
             for s in shapes]
     kp, pp = [t.clone() for t in init], [t.clone() for t in init]
-    kstate, pstate = fu.fused_adamw_ema_init(kp), fu.fused_adamw_ema_init(pp)
+    kstate = fu.fused_adamw_ema_init(kp, nu_dtype=nu_dtype)
+    pstate = fu.fused_adamw_ema_init(pp, nu_dtype=nu_dtype)
     kema, pema = [w.clone() for w in kstate.master], [w.clone() for w in pstate.master]
     hyper = dict(lr=LR, b1=0.9, b2=0.999, eps=1e-8, wd=0.0, ema_decay=0.9999)
     apply_kw = dict(lr=LR, weight_decay=0.0, ema_decay=0.9999)
+    name = fu._COUNTS[nu_dtype]
     grads = None
     _build.reset_launch_counts()
     for _ in range(steps):
@@ -440,38 +492,43 @@ def phase_fused_update(steps=3):
         fu.fused_adamw_ema_apply(kstate, grads, kp, kema, **apply_kw)
         fu._apply_plain(pstate, grads, pp, pema, hyper)
     torch.cuda.synchronize()
-    launches = _build.launch_counts["fused_adamw_ema"]
-    if launches != steps * len(shapes):
-        raise AssertionError(f"fused update launched {launches} times, expected one per "
-                             f"leaf per step = {steps * len(shapes)}")
+    launches = dict(_build.launch_counts)
+    want = {**{k: 0 for k in launches}, name: steps * len(shapes)}
+    if launches != want:
+        raise AssertionError(f"fused update launched {launches}, expected one {name} per "
+                             f"leaf per step: {want}")
     # both round op for op in fp32, each op correctly rounded (no fused
-    # multiply-add in the kernel): every state must equal the plain version's
-    # in every element
+    # multiply-add in the kernel), and vhat comes from the unrounded v in
+    # both: every state must equal the plain version's in every element
     errs = {}
-    for name, a, b in (("param", kp, pp), ("mu", kstate.mu, pstate.mu),
+    for what, a, b in (("param", kp, pp), ("mu", kstate.mu, pstate.mu),
                        ("nu", kstate.nu, pstate.nu), ("master", kstate.master, pstate.master),
                        ("ema", kema, pema)):
-        errs[name] = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+        errs[what] = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"fused update vs _update_math: {name} differs, "
-                                 f"max abs err {errs[name]}")
+            raise AssertionError(f"fused update ({name}) vs _update_math: {what} differs, "
+                                 f"max abs err {errs[what]}")
     n = sum(math.prod(s) for s in shapes)
     # each element: read g, m, v, w, e and write p, m, v, w, e once; ~15 flops
-    nbytes = n * (2 * 2 + 2 * 2 + 24)
+    nu_bytes = torch.tensor([], dtype=nu_dtype).element_size()
+    nbytes = n * (2 * 2 + 2 * 2 + 2 * nu_bytes + 16)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 15 * n / PEAK_FLOPS[torch.float32] * 1e3
     kernel_ms = cuda_ms(lambda: fu.fused_adamw_ema_apply(kstate, grads, kp, kema, **apply_kw),
                         iters=5, warmup=1)
     plain_ms = cuda_ms(lambda: fu._apply_plain(pstate, grads, pp, pema, hyper),
                        iters=5, warmup=1)
     del pp, pstate, pema
-    # the library yardstick: torch's fused AdamW over fp32 copies of the tree
-    masters = [w.clone() for w in kstate.master]
-    for w, gr in zip(masters, grads):
-        w.grad = gr.float()
-    opt = torch.optim.AdamW(masters, lr=LR, weight_decay=0.0, fused=True)
-    library_ms = cuda_ms(opt.step, iters=5, warmup=1)
-    row = {"phase": "fused_update", "name": "fused_adamw_ema", "leaves": len(shapes),
+    if library_ms is None:
+        # the library yardstick: torch's fused AdamW over fp32 copies of the tree
+        masters = [w.clone() for w in kstate.master]
+        for w, gr in zip(masters, grads):
+            w.grad = gr.float()
+        opt = torch.optim.AdamW(masters, lr=LR, weight_decay=0.0, fused=True)
+        library_ms = cuda_ms(opt.step, iters=5, warmup=1)
+        del masters, opt
+    row = {"phase": "fused_update", "name": name, "leaves": len(shapes),
            "elements": n, "steps": steps, "param_dtype": "bfloat16", "mu_dtype": "bfloat16",
+           "nu_dtype": _dtype_name(nu_dtype), "bytes_per_element": nbytes // n,
            "max_abs_err": errs, "tol": 0,
            "launches_per_step": len(shapes), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
@@ -479,7 +536,7 @@ def phase_fused_update(steps=3):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     emit(row)
-    del kp, kstate, kema, masters, opt, grads, init
+    del kp, kstate, kema, grads, init
     torch.cuda.empty_cache()
     return row
 
@@ -633,8 +690,9 @@ def profile_device(run, table_path, what):
 
 
 def _sampler_small_checks():
-    """Each new loop on a small fp32 model (DiT-S/2, depth 2, 8² latents,
-    CFG 4.0), on the card (kernel 1) and on the CPU (its plain version),
+    """Each new loop (the cached ones too) on a small fp32 model (DiT-S/2,
+    depth 2, 8² latents, CFG 4.0), on the card (kernel 1) and on the CPU (its
+    plain version),
     with the same weights and noise: the final latents agree within 1e-4 of
     max, the limit of phase `sample`'s small check."""
     g = torch.Generator().manual_seed(14)
@@ -653,6 +711,19 @@ def _sampler_small_checks():
             noise=noise.to(dev), step_noise=step_noise.to(dev), clip_denoised=False)),
         "ddim_reverse": (True, "6", lambda d, cfg, cond, m, dev: d.ddim_reverse_sample_loop(
             cfg, x0.to(dev))),
+        "ddpm_cache2": (True, "10", lambda d, cfg, cond, m, dev: d.p_sample_loop_cached(
+            lambda x, t: cfg(x, t, want_cache=True), lambda x, t, c: cfg(x, t, cache=c),
+            noise.shape, interval=2, noise=noise.to(dev), step_noise=step_noise.to(dev),
+            clip_denoised=False)),
+        "ddim_cache3_logsnr": (True, "10", lambda d, cfg, cond, m, dev: d.ddim_sample_loop_cached(
+            lambda x, t: cfg(x, t, want_cache=True), lambda x, t, c: cfg(x, t, cache=c),
+            noise.shape, interval=3, refresh_schedule="logsnr", noise=noise.to(dev),
+            clip_denoised=False)),
+        "ddpm_interval_cache2": (True, "10", lambda d, cfg, cond, m, dev: (lambda full, cached,
+            forced: d.p_sample_loop_cached(full, cached, noise.shape, interval=2,
+                                           force_refresh_mask=forced, noise=noise.to(dev),
+                                           step_noise=step_noise.to(dev), clip_denoised=False))(
+            *guidance_interval_cached_fns(cfg, cond, d.schedule, *CFG_INTERVAL))),
         "flow_euler": (False, "6", lambda d, cfg, cond, m, dev: flow_sample_loop(
             cfg, noise.shape, num_steps=6, method="euler", noise=noise.to(dev))),
         "flow_heun": (False, "4", lambda d, cfg, cond, m, dev: flow_sample_loop(
@@ -668,8 +739,8 @@ def _sampler_small_checks():
             d = create_diffusion(respacing, device=device)
             yy = torch.tensor(y, device=device)
             kw = {} if learn_sigma else {"guidance_channels": 4}
-            cfg = lambda x, t: model.forward_with_cfg(x, t, yy, 4.0, **kw)
-            cond = lambda x, t: model(x, t, yy[:2])
+            cfg = lambda x, t, **ck: model.forward_with_cfg(x, t, yy, 4.0, **kw, **ck)
+            cond = lambda x, t, **ck: model(x, t, yy[:2], **ck)
             with torch.inference_mode():
                 outs.append(run(d, cfg, cond, model, device).cpu())
         err, peak = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
@@ -679,12 +750,15 @@ def _sampler_small_checks():
     return res
 
 
-def _sampler_chain(args, model, diffusion, evals, profile_table=None):
+def _sampler_chain(args, model, diffusion, evals, profile_table=None, refreshes=None):
     """One chain of the sampler CLI's functions (`sampling_inputs`,
     `make_model_fn`, `run_chain`) with the launch counts set to 0 just
     before and read just after, under sync debug mode "error": a step that
     waits for the device raises. Model calls are counted by batch: 16 is
-    a guided (CFG) call, 8 the conditional half alone."""
+    a guided (CFG) call, 8 the conditional half alone. A cached chain calls
+    the model every step but runs attention (kernel 1) on its `refreshes`
+    full calls only."""
+    refreshes = evals if refreshes is None else refreshes
     z, y, g = cli.sampling_inputs(args, model)
     fn = cli.make_model_fn(args, model, diffusion, y)
     calls = collections.Counter()
@@ -704,7 +778,7 @@ def _sampler_chain(args, model, diffusion, evals, profile_table=None):
     finally:
         hook.remove()
     launches = dict(_build.launch_counts)
-    want = {**{k: 0 for k in launches}, "attention_fwd": model.depth * evals}
+    want = {**{k: 0 for k in launches}, "attention_fwd": model.depth * refreshes}
     if launches != want:
         raise AssertionError(f"{args.sampler} chain launches {launches}, expected {want}")
     n = len(cli.CLASS_LABELS)
@@ -715,7 +789,9 @@ def _sampler_chain(args, model, diffusion, evals, profile_table=None):
                              f"expected {evals}")
     steps = args.num_sampling_steps
     row = {"sampler": args.sampler, "steps": steps, "time_spacing": args.time_spacing,
-           "cfg_interval": args.cfg_interval, "model_evals": evals, "loop_s": loop_s,
+           "cfg_interval": args.cfg_interval, "cache_interval": args.cache_interval,
+           "cache_schedule": args.cache_schedule, "refresh_steps": refreshes,
+           "model_evals": evals, "loop_s": loop_s,
            "s_per_step": loop_s / steps, "s_per_eval": loop_s / evals,
            "images_per_s": n / loop_s, "guided_calls": calls[2 * n],
            "conditional_only_calls": calls[n], "launches": launches,
@@ -750,8 +826,18 @@ def phase_samplers(profile_table, vae_bin, models):
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         diffusion = cli.build_diffusion(args, torch.device("cuda"))
+        refreshes = None
+        if args.cache_interval > 1:  # the host mask decides: count it here
+            mask = cache_refresh_mask(diffusion.schedule, args.cache_interval,
+                                      args.cache_schedule)
+            if args.cfg_interval is not None:
+                mask = mask | guidance_interval_cached_fns(None, None, diffusion.schedule,
+                                                           *args.cfg_interval)[2]
+            mask[0] = True
+            refreshes = int(mask.sum())
         row, launches[name] = _sampler_chain(args, model, diffusion, evals,
-                                             profile_table and f"{root}_{name}{ext}")
+                                             profile_table and f"{root}_{name}{ext}",
+                                             refreshes=refreshes)
         row["model_build_s"] = build_s
         if args.cfg_interval is not None:
             guided = int(guided_steps_korder(diffusion.schedule, *args.cfg_interval).sum())
@@ -788,11 +874,15 @@ def phase_samplers(profile_table, vae_bin, models):
     return launches
 
 
-def _small_train_check(steps=2, objective="eps"):
+def _small_train_check(steps=2, objective="eps", policy="nothing", nu=None):
     """A small model trained on the card (kernels) and on the CPU (plain
     versions) from the same weights with the same draws: the last loss, the
     last gradients, the parameters and the EMA must agree. The flow
-    objective draws t in [0, 1) and has no learned-sigma channels."""
+    objective draws t in [0, 1) and has no learned-sigma channels. `policy`
+    is the remat policy; `nu` ("bf16" or "factored") takes the fused route,
+    whose parameters and gradients are bf16: its parameters are compared
+    through the fp32 master, its gradients to one bf16 ulp of their largest
+    (the two devices sum the fp32 gradient in other orders, then round it)."""
     g = torch.Generator().manual_seed(4)
     x = torch.randn(4, 4, 8, 8, generator=g)
     y = torch.tensor([1, 7, 3, 999])
@@ -800,20 +890,26 @@ def _small_train_check(steps=2, objective="eps"):
                     else torch.randint(0, 1000, (4,), generator=g)),
               "noise": torch.randn(4, 4, 8, 8, generator=g),
               "force_drop_ids": torch.tensor([0, 1, 0, 0])} for _ in range(steps)]
+    fused = nu is not None
     res = {}
     for device in ("cuda", "cpu"):
-        model = DiT_models["DiT-S/2"](input_size=8, depth=2, remat=True,
+        # width 384, depth 2: the factored route has factored and dense leaves
+        model = DiT_models["DiT-S/2"](input_size=8, depth=2, remat=True, remat_policy=policy,
                                       learn_sigma=objective == "eps", device=device, seed=0)
         cli.perturb_(model)
         diffusion = create_diffusion("", device=device)
-        state = create_train_state(model, lr=LR)
+        state = create_train_state(model, lr=None if fused else LR, fused_optimizer=fused,
+                                   nu_dtype=torch.bfloat16 if nu == "bf16" else None,
+                                   factored_nu=nu == "factored")
         step = make_train_step(model, diffusion.schedule, lr=LR, objective=objective)
         batch = {"x": x.to(device), "y": y.to(device)}
         losses = [step(state, batch, draws=[{k: v.to(device) for k, v in d.items()}])["loss"]
                   .item() for d in draws]
+        params = state.opt.master if fused else list(model.parameters())
         res[device] = {"loss": losses,
-                       "grad": torch.cat([p.grad.flatten() for p in model.parameters()]).cpu(),
-                       "param": torch.cat([p.detach().flatten() for p in model.parameters()]).cpu(),
+                       "grad": torch.cat([p.grad.float().flatten()
+                                          for p in model.parameters()]).cpu(),
+                       "param": torch.cat([p.detach().flatten() for p in params]).cpu(),
                        "ema": torch.cat([e.flatten() for e in state.ema.values()]).cpu()}
     card, cpu = res["cuda"], res["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(card["loss"], cpu["loss"]))
@@ -824,21 +920,58 @@ def _small_train_check(steps=2, objective="eps"):
     # agree closely; Adam moves a parameter by about +-lr whatever the size
     # of its gradient, so where a gradient sits near 0 the two may step apart
     # by up to 2 lr a step; the EMA moves (1 - decay) of that
-    tols = {"loss": 1e-5 * abs(cpu["loss"][-1]), "grad": 1e-4 * cpu["grad"].abs().max().item(),
+    grad_rtol = 2 ** -8 if fused else 1e-4
+    tols = {"loss": 1e-5 * abs(cpu["loss"][-1]),
+            "grad": grad_rtol * cpu["grad"].abs().max().item(),
             "param": 2 * LR * steps, "ema": 2 * LR * steps * 1e-4 + 1e-6}
     errs = {"loss": loss_err, "grad": grad_err, "param": param_err, "ema": ema_err}
     for k in errs:
         if not errs[k] <= tols[k]:
-            raise AssertionError(f"small-model training card vs CPU: {k} max abs err "
-                                 f"{errs[k]} > {tols[k]}")
+            raise AssertionError(f"small-model training ({objective}, remat {policy}, nu "
+                                 f"{nu}) card vs CPU: {k} max abs err {errs[k]} > {tols[k]}")
     return {"max_abs_err": errs, "tol": tols, "losses": card["loss"]}
+
+
+def _optimizer_ms(state, ema_decay=0.9999):
+    """Device ms of the step's optimizer and EMA update alone, on the
+    gradients the last step left (the state is stepped further)."""
+    params = state.params()
+    grads, ema = [p.grad for p in params], list(state.ema.values())
+    if isinstance(state.opt, fu.FusedAdamWEmaState):
+        def run():
+            fu.fused_adamw_ema_apply(state.opt, grads, [p.data for p in params], ema, lr=LR,
+                                     ema_decay=ema_decay)
+    else:
+        def run():
+            state.opt.step()
+            update_ema(ema, get_master_params(state.opt) or params, ema_decay)
+    return cuda_ms(run, iters=3, warmup=1)
+
+
+def _fwd_bwd_gib(model, diffusion, batch):
+    """GiB that one forward and backward of the eps loss adds on top of what
+    is allocated before it (the gradients exist already): the activations
+    the remat policy keeps, and the recompute's transients."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, y = batch["x"], batch["y"]
+    t = torch.randint(0, diffusion.num_timesteps, (x.shape[0],), generator=g, device="cuda")
+    noise = torch.randn(x.shape, generator=g, device="cuda")
+    training_losses(diffusion.schedule, lambda xt, tm: model(xt, tm, y, train=True,
+                                                             generator=g),
+                    x, t, noise)["loss"].mean().backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
 def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
     """The trainer CLI's own functions: build, one batch of synthetic
     latents, `warmup` steps, then `steps` timed steps with the launch counts
     set to 0 just before and read just after, and every parameter and EMA
-    leaf checked to have moved. With `no_sync` the timed steps run under
+    leaf checked to have moved; then the optimizer's device time alone and
+    the peak of allocated memory. With `no_sync` the timed steps run under
     torch.cuda.set_sync_debug_mode("error"): a step that waits for the
     device raises."""
     args = train_cli.parse_args(TRAIN_ARGS + flags)
@@ -875,23 +1008,38 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
                              f"with {flags}: {still[:5]}")
     del before
     depth = model.depth
-    want = {**{k: 0 for k in launches}, "attention_fwd": 2 * depth * steps,
-            "attention_bwd": depth * steps,
-            "fused_adamw_ema": (len(list(model.parameters())) * steps
-                                if args.fused_optimizer else 0)}
+    # the forward kernel runs once a block, and again in the backward under
+    # every remat policy; the fused update once per dense leaf, by nu dtype
+    dense = collections.Counter(
+        fu._COUNTS[v.dtype] for v in (state.opt.nu if args.fused_optimizer else [])
+        if not isinstance(v, fu.FactoredNu))
+    want = {**{k: 0 for k in launches},
+            "attention_fwd": (1 if args.no_remat else 2) * depth * steps,
+            "attention_bwd": depth * steps, **{k: n * steps for k, n in dense.items()}}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
+    optimizer_ms = _optimizer_ms(state, args.ema_decay)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     row = {"model": "DiT-XL/2", "image_size": 256, "batch": args.global_batch_size,
-           "dtype": "bfloat16", "remat": "nothing", "flags": flags,
+           "dtype": "bfloat16", "remat": None if args.no_remat else args.remat_policy,
+           "flags": flags, "optimizer_ms": optimizer_ms,
+           "fwd_bwd_gib": (_fwd_bwd_gib(model, diffusion, batch) if args.objective == "eps"
+                           else None),
            "params": sum(p.numel() for p in model.parameters()),
            "warmup_steps": warmup, "steps": steps, "setup_s": setup_s, "loop_s": loop_s,
            "s_per_step": loop_s / steps,
            "images_per_s": args.global_batch_size * steps / loop_s,
            "losses": losses, "launches": launches,
-           "sync_debug_mode": "error" if no_sync else None,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+           "sync_debug_mode": "error" if no_sync else None, "peak_mem_gib": peak_gib}
+    if args.fused_optimizer:
+        nus = {id(v): v for v in state.opt.nu}.values()
+        row["nu"] = fu.nu_kind(state.opt)
+        row["nu_bytes"] = sum((v.row.numel() + v.col.numel()) * 4 if isinstance(v, fu.FactoredNu)
+                              else v.numel() * v.element_size() for v in nus)
+        row["factored_tensors"] = sum(isinstance(v, fu.FactoredNu) for v in state.opt.nu)
+        row["factored_jax_leaves"] = sum(isinstance(v, fu.FactoredNu) for v in nus)
     if sampler is not None:  # every step folded its batch into the loss history
         counted = sampler.loss_counts.sum().item()
         if counted != min(args.global_batch_size * (warmup + steps),
@@ -907,9 +1055,11 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
 
 
 def phase_train(profile_table):
-    """Returns {path: launches} of the four training runs."""
+    """Returns {path: launches} of the training runs."""
     small = _small_train_check()
     small_flow = _small_train_check(objective="flow")
+    small_more = {**{f"remat_{p}": _small_train_check(policy=p) for p in ("attn", "attn_mlp")},
+                  **{f"nu_{nu}": _small_train_check(nu=nu) for nu in ("bf16", "factored")}}
     table = None
     if profile_table:
         root, ext = os.path.splitext(profile_table)
@@ -922,10 +1072,127 @@ def phase_train(profile_table):
                                      no_sync=True)
     lsm, lsm_launches = _train_run(["--schedule-sampler", "loss-second-moment"], warmup=2,
                                    steps=LSM_TRAIN_STEPS, no_sync=True)
+    more, more_launches = {}, {}
+    for name, flags in TRAIN_MORE:
+        more[name], more_launches[f"train_{name}"] = _train_run(
+            flags, warmup=2, steps=MORE_TRAIN_STEPS, no_sync=True)
+    peak = {"main_nothing": (main["peak_mem_gib"], main["fwd_bwd_gib"]),
+            **{k: (more[k]["peak_mem_gib"], more[k]["fwd_bwd_gib"])
+               for k in ("no_remat", "remat_attn", "remat_attn_mlp")}}
     emit({"phase": "train", "small_check": small, "small_check_flow": small_flow,
-          "main": main, "fused_optimizer": fused, "flow": flow, "loss_second_moment": lsm})
+          "small_check_more": small_more, "main": main, "fused_optimizer": fused,
+          "flow": flow, "loss_second_moment": lsm, **more,
+          "peak_and_fwd_bwd_gib_by_remat": peak})
     return {"train": main_launches, "train_fused_optimizer": fused_launches,
-            "train_flow": flow_launches, "train_loss_second_moment": lsm_launches}
+            "train_flow": flow_launches, "train_loss_second_moment": lsm_launches,
+            **more_launches}
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state by a name: parameters, EMA, optimizer
+    state, the loss-second-moment buffers and the generator's state."""
+    out = {f"param {n}": p for n, p in state.model.named_parameters()}
+    out.update({f"ema {n}": e for n, e in state.ema.items()})
+    opt = state.opt
+    if isinstance(opt, fu.FusedAdamWEmaState):
+        for i, (m, v, w) in enumerate(zip(opt.mu, opt.nu, opt.master)):
+            out[f"mu {i}"], out[f"master {i}"] = m, w
+            if isinstance(v, fu.FactoredNu):
+                out[f"nu {v.leaf.path} row"], out[f"nu {v.leaf.path} col"] = v.row, v.col
+            else:
+                out[f"nu {i}"] = v
+    else:
+        for i, st in enumerate(getattr(opt, "inner", opt).state.values()):
+            out.update({f"adam {i} {k}": v for k, v in st.items()})
+        out.update({f"master {i}": w for i, w in enumerate(getattr(opt, "master", []))})
+    out["sampler history"] = state.sampler_state.loss_history
+    out["sampler counts"] = state.sampler_state.loss_counts
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def _resume_build(flags, seed):
+    """A DiT-XL/2-wide train state of depth RESUME_DEPTH on the card (bf16
+    activations, remat), with a warmed-up loss-second-moment sampler and the
+    step's generator, all from `seed`."""
+    model = DiT_models["DiT-XL/2"](input_size=32, depth=RESUME_DEPTH, dtype=torch.bfloat16,
+                                   remat=True, device="cuda", seed=seed)
+    cli.perturb_(model, seed=seed + 1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    sampler = LossSecondMomentState.create(1000, device="cuda")
+    sampler = dataclasses.replace(sampler, loss_history=torch.rand(
+        sampler.loss_history.shape, generator=g, device="cuda"),
+        loss_counts=torch.full_like(sampler.loss_counts, sampler.history_per_term))
+    fused = bool(flags.get("fused_optimizer"))
+    state = create_train_state(model, lr=None if fused else LR, sampler_state=sampler,
+                               generator=g, **flags)
+    step = make_train_step(model, create_diffusion("", device="cuda").schedule, lr=LR,
+                           generator=g)
+    return state, step
+
+
+def phase_resume():
+    """Checkpoints at full width: for each optimizer route and kind of nu,
+    2 steps, save, 2 more as the reference; then a state built from another
+    seed restores the file and runs the same 2 batches: every tensor of the
+    two states must be equal. Then the trainer CLI's own --resume (DiT-S/2):
+    it re-enters the latest dir and continues from its latest step."""
+    rs = np.random.RandomState(5)
+    batches = [{"x": torch.from_numpy(rs.randn(RESUME_BATCH, 4, 32, 32).astype(np.float32))
+                .cuda(), "y": torch.from_numpy(rs.randint(0, 1000, RESUME_BATCH)).cuda()}
+               for _ in range(4)]
+    ckpt_dir = os.path.join(OUT_DIR, "resume")
+    routes = {}
+    for name, flags in RESUME_ROUTES:
+        ref, ref_step = _resume_build(flags, seed=0)
+        for b in batches[:2]:
+            ref_step(ref, b)
+        mgr = CheckpointManager(os.path.join(ckpt_dir, name), max_to_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(2, ref)
+        save_s = time.perf_counter() - t0
+        ref_losses = [ref_step(ref, b)["loss"].item() for b in batches[2:]]
+        want = {k: v.clone() for k, v in _state_tensors(ref).items()}
+        del ref, ref_step
+        state, step = _resume_build(flags, seed=7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored_step = mgr.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        losses = [step(state, b)["loss"].item() for b in batches[2:]]
+        got = _state_tensors(state)
+        differ = [k for k in want if not torch.equal(got[k], want[k].to(got[k].device))]
+        if restored_step != 2 or state.step != 4 or losses != ref_losses or differ:
+            worst = max(((got[k].float() - want[k].float().to(got[k].device)).abs().max()
+                         .item(), k) for k in differ) if differ else None
+            raise AssertionError(f"resume {name}: 2 + restore + 2 steps differ from 4 steps: "
+                                 f"losses {losses} vs {ref_losses}, {len(differ)} tensors "
+                                 f"differ, the largest {worst}")
+        routes[name] = {"flags": {k: str(v) for k, v in flags.items()},
+                        "file_bytes": os.path.getsize(path), "save_s": save_s,
+                        "restore_s": restore_s, "tensors_equal": len(want), "losses": losses}
+        del state, step, want, got
+        shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+        torch.cuda.empty_cache()
+    # the CLI: a run, then --resume, which finds the latest dir and step
+    results = os.path.join(ckpt_dir, "results")
+    base = ["--model", "DiT-S/2", "--synthetic-data", "--global-batch-size", "8",
+            "--results-dir", results, "--log-every", "1", "--schedule-sampler",
+            "loss-second-moment", "--fused-optimizer", "--factored-nu"]
+    train_cli.main(train_cli.parse_args(base + ["--max-steps", "1"]))
+    train_cli.main(train_cli.parse_args(base + ["--max-steps", "2", "--resume"]))
+    (exp,) = os.listdir(results)
+    with open(os.path.join(results, exp, "log.txt")) as f:
+        log = f.read()
+    latest = CheckpointManager(os.path.join(results, exp, "checkpoints")).latest_step()
+    if "Resumed from checkpoint at step 1" not in log or latest != 2:
+        raise AssertionError(f"the CLI's --resume: latest step {latest}, log:\n{log}")
+    emit({"phase": "resume", "model": f"DiT-XL/2 width, depth {RESUME_DEPTH}",
+          "batch": RESUME_BATCH, "schedule_sampler": "loss-second-moment (warmed up)",
+          "routes": routes, "cli_resume": {"model": "DiT-S/2", "dir": exp,
+                                           "latest_step": latest, "resumed_at": 1}})
 
 
 def _dtype_name(dtype):
@@ -1569,6 +1836,7 @@ def main():
     fwd = phase_kernel()
     bwd = phase_kernel_bwd()
     fused = phase_fused_update()
+    fused_nu16 = phase_fused_update(nu_dtype=torch.bfloat16, library_ms=fused["library_ms"])
     phase_model()
     vae_table = None
     if a.profile:
@@ -1584,6 +1852,7 @@ def main():
     del vae
     torch.cuda.empty_cache()
     train_launches = phase_train(a.profile)
+    phase_resume()
     ring_fwd = phase_ring_kernel()
     ring_bwd = phase_ring_kernel_bwd()
     seq_table = None
@@ -1617,6 +1886,11 @@ def main():
         entry("fused_adamw_ema", "fast_dit_torch/csrc/fused_update.cu",
               "fast_dit_tpu/ops/fused_update.py:138", fused,
               err=max(fused["max_abs_err"].values())),
+        # the same kernel's bf16-nu instantiation (JAX runs bf16 nu through
+        # _update_math on XLA, the math of the same TPU kernel)
+        entry("fused_adamw_ema_nu_bf16", "fast_dit_torch/csrc/fused_update.cu",
+              "fast_dit_tpu/ops/fused_update.py:138", fused_nu16,
+              err=max(fused_nu16["max_abs_err"].values())),
         entry("ring_hop_fwd", "fast_dit_torch/csrc/ring_hop_fwd.cu",
               "fast_dit_tpu/ops/ring_attention.py:77", ring_fwd),
         entry("ring_hop_bwd", "fast_dit_torch/csrc/ring_hop_bwd.cu",

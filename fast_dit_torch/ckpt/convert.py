@@ -6,6 +6,10 @@
   Dense kernels, (D, 3, H, hd) qkv kernel) into the port's state dict, with
   the reference torch names. The maps are the port's own copy of the
   inverse maps at `torch_import.py:54-121` and `:166-210`.
+- `jax_leaves` lists the flax leaves of a port DiT: which of its parameters
+  each stacks and how one of them looks in flax's layout, so that a state
+  kept per flax leaf (the factored second moment of `ops/fused_update.py`)
+  lives in JAX's shapes.
 - `load_torch_checkpoint` reads a local reference `.pt` file: a flat state
   dict, or a trainer checkpoint {"model", "ema", ...} resolved to "ema" when
   present. It never downloads.
@@ -13,14 +17,16 @@
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import math
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ..models.pos_embed import get_2d_sincos_pos_embed
 
-__all__ = ["flax_params_to_state_dict", "load_torch_checkpoint"]
+__all__ = ["flax_params_to_state_dict", "load_torch_checkpoint", "JaxLeaf", "jax_leaves"]
 
 
 def _t(arr):  # flax Dense kernel (in, out) -> torch Linear weight (out, in)
@@ -99,6 +105,72 @@ def flax_params_to_state_dict(params: dict, patch_size: int, in_channels: int = 
     arrays["pos_embed"] = get_2d_sincos_pos_embed(d, input_size // patch_size)[None]
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in arrays.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One leaf of the JAX DiT's param tree, in terms of the port's
+    parameters: `members` index `model.parameters()`; a block leaf stacks
+    its `depth` members on a leading axis (nn.scan), a top-level leaf has
+    one. `to_jax` maps one member to its flax layout, `from_jax` back."""
+
+    path: str
+    members: Tuple[int, ...]
+    shape: Tuple[int, ...]   # the flax leaf's shape, the depth axis included
+    to_jax: Callable
+    from_jax: Callable
+
+    @property
+    def stacked(self) -> bool:
+        return self.path.startswith("blocks/")
+
+
+def _layouts(heads: int):
+    """{torch name suffix: (to_jax, from_jax)} for a DiT with `heads` heads:
+    the inverses of the exports above, as views where the layout allows."""
+    t = (lambda a: a.T, lambda a: a.T)
+    same = (lambda a: a, lambda a: a)
+    qkv_w = (lambda a: a.T.reshape(a.shape[1], 3, heads, -1),
+             lambda a: a.reshape(a.shape[0], -1).T)
+    qkv_b = (lambda a: a.reshape(3, heads, -1), lambda a: a.reshape(-1))
+    proj_w = (lambda a: a.T.reshape(heads, -1, a.shape[0]),
+              lambda a: a.reshape(-1, a.shape[-1]).T)
+    patch = (lambda a: a.reshape(a.shape[0], -1).T, None)  # from_jax needs the shape
+    table = {}
+    for suffix, (_, export) in {**_BLOCK_MAP, **_TOP_MAP}.items():
+        table[suffix] = {_t: t, _id: same, _qkv_w: qkv_w, _qkv_b: qkv_b,
+                         _proj_w: proj_w}[export]
+    table["x_embedder.proj.weight"] = patch
+    return table
+
+
+def jax_leaves(model) -> List[JaxLeaf]:
+    """The flax leaves of `model` (a port DiT) in flax's order of paths,
+    each with the port's parameters it holds."""
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    index = {n: i for i, n in enumerate(names)}
+    layouts = _layouts(model.num_heads)
+    leaves = []
+    for name, (path, _) in _TOP_MAP.items():
+        i = index[name]
+        to_jax, from_jax = layouts[name]
+        leaves.append(JaxLeaf(path, (i,), tuple(to_jax(params[i]).shape), to_jax, from_jax))
+    i = index["x_embedder.proj.weight"]
+    shape4 = tuple(params[i].shape)
+    leaves.append(JaxLeaf("x_embedder/proj/kernel", (i,), (math.prod(shape4[1:]), shape4[0]),
+                          layouts["x_embedder.proj.weight"][0],
+                          lambda a, s=shape4: a.T.reshape(s)))
+    for suffix, (path, _) in _BLOCK_MAP.items():
+        members = tuple(index[f"blocks.{b}.{suffix}"] for b in range(len(model.blocks)))
+        to_jax, from_jax = layouts[suffix]
+        one = tuple(to_jax(params[members[0]]).shape)
+        leaves.append(JaxLeaf(f"blocks/block/{path}", members, (len(members), *one),
+                              to_jax, from_jax))
+    leaves.sort(key=lambda leaf: leaf.path)
+    if sorted(i for leaf in leaves for i in leaf.members) != list(range(len(params))):
+        raise ValueError("the model's parameters do not map one to one onto JAX's leaves")
+    return leaves
 
 
 def load_torch_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:

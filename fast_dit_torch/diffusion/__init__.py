@@ -7,8 +7,7 @@ samplers.
 epsilon prediction, LEARNED_RANGE variance, MSE loss, the "250" / "ddim50" /
 "10,15,20" / "karrasN" respacing strings), plus the `device` the tables live
 on ("cuda" unless the caller asks for the CPU). The `Diffusion` facade
-carries the method surface of the JAX facade (:95-247) except the
-FORA-cached loops.
+carries the method surface of the JAX facade (:95-247).
 """
 
 from __future__ import annotations
@@ -20,10 +19,12 @@ from . import gaussian, sampling
 from ..utils.device import resolve_device
 from .flow import (FLOW_PATHS, flow_path_coeffs, flow_reverse_loop, flow_sample_loop,
                    flow_training_losses)
-from .guidance_interval import guidance_interval_fn, guidance_interval_mask, guided_steps_korder
+from .guidance_interval import (guidance_interval_cached_fns, guidance_interval_fn,
+                                guidance_interval_mask, guided_steps_korder)
 from .respace import karras_timesteps, space_timesteps
-from .sampling import (ddim_reverse_sample_loop, ddim_sample_loop, dpm_solver_sample_loop,
-                       p_sample_loop, unipc_sample_loop)
+from .sampling import (cache_refresh_mask, ddim_reverse_sample_loop, ddim_sample_loop,
+                       ddim_sample_loop_cached, dpm_solver_sample_loop, p_sample_loop,
+                       p_sample_loop_cached, unipc_sample_loop)
 from .schedule import (DiffusionSchedule, LossType, MeanType, VarType,
                        betas_for_alpha_bar, get_named_beta_schedule)
 from .timestep_samplers import (LossSecondMomentState, UniformSamplerState,
@@ -47,8 +48,17 @@ __all__ = [
     "flow_sample_loop",
     "flow_reverse_loop",
     "guidance_interval_fn",
+    "guidance_interval_cached_fns",
     "guidance_interval_mask",
     "guided_steps_korder",
+    "p_sample_loop",
+    "ddim_sample_loop",
+    "p_sample_loop_cached",
+    "ddim_sample_loop_cached",
+    "cache_refresh_mask",
+    "dpm_solver_sample_loop",
+    "unipc_sample_loop",
+    "ddim_reverse_sample_loop",
     "gaussian",
     "sampling",
     "create_named_schedule_sampler",
@@ -127,6 +137,32 @@ class Diffusion:
                                 clip_denoised=clip_denoised, denoised_fn=denoised_fn,
                                 cond_fn=cond_fn, eta=eta,
                                 return_intermediates=return_intermediates, dtype=dtype)
+
+    def p_sample_loop_cached(self, model_full_fn, model_cached_fn, shape, *, interval,
+                             refresh_schedule="uniform", force_refresh_mask=None,
+                             generator=None, noise=None, step_noise=None, clip_denoised=True,
+                             denoised_fn=None, cond_fn=None, dtype=torch.float32):
+        """DDPM with the FORA layer cache: `model_full_fn(x, t) -> (out,
+        cache)` every refresh, `model_cached_fn(x, t, cache)` between."""
+        return p_sample_loop_cached(model_full_fn, model_cached_fn, shape, self.schedule,
+                                    interval=interval, refresh_schedule=refresh_schedule,
+                                    force_refresh_mask=force_refresh_mask, generator=generator,
+                                    noise=noise, step_noise=step_noise,
+                                    clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                    cond_fn=cond_fn, dtype=dtype)
+
+    def ddim_sample_loop_cached(self, model_full_fn, model_cached_fn, shape, *, interval,
+                                refresh_schedule="uniform", force_refresh_mask=None,
+                                generator=None, noise=None, step_noise=None,
+                                clip_denoised=True, denoised_fn=None, cond_fn=None, eta=0.0,
+                                dtype=torch.float32):
+        """DDIM with the FORA layer cache (see `p_sample_loop_cached`)."""
+        return ddim_sample_loop_cached(model_full_fn, model_cached_fn, shape, self.schedule,
+                                       interval=interval, refresh_schedule=refresh_schedule,
+                                       force_refresh_mask=force_refresh_mask,
+                                       generator=generator, noise=noise, step_noise=step_noise,
+                                       clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                       cond_fn=cond_fn, eta=eta, dtype=dtype)
 
     def dpm_solver_sample_loop(self, model_fn, shape, *, generator=None, noise=None, order=2,
                                clip_denoised=True, denoised_fn=None, model_kwargs=None,

@@ -11,8 +11,9 @@ test can inject the same draws into both packages.
 No loop waits for the device: the per-step coefficients are host floats,
 and every model call goes through `gaussian.model_call` with the step's
 original timestep from the schedule's host map, which it publishes on the
-host (`gaussian.host_timestep`) for the guidance interval. The FORA-cached
-loops (:183-495) are not ported.
+host (`gaussian.host_timestep`) for the guidance interval. The cached
+loops pick a full or a cached model call per step from the host refresh
+mask, so they read nothing from the device either.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from . import gaussian
 from .schedule import DiffusionSchedule
 
 __all__ = ["p_sample_loop", "ddim_sample_loop", "ddim_reverse_sample_loop",
+           "p_sample_loop_cached", "ddim_sample_loop_cached", "cache_refresh_mask",
            "dpm_solver_sample_loop", "unipc_sample_loop", "dpm_solver_coefficients",
            "unipc_coefficients"]
 
@@ -118,6 +120,146 @@ def ddim_reverse_sample_loop(model_fn: Callable, x_start, sched: DiffusionSchedu
     return _loop("ddim_reverse", model_fn, x_start.shape, sched, noise=x_start,
                  clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
                  return_intermediates=return_intermediates, dtype=dtype)
+
+
+def cache_refresh_mask(sched: DiffusionSchedule, interval: int,
+                       schedule: str = "uniform") -> np.ndarray:
+    """(T,) bool in step order (k = 0 visits t = T-1): which steps refresh
+    the layer cache, JAX's host arithmetic (`sampling.py:183-241`) as it is.
+    Every schedule spends the same budget, ceil(T / interval) full
+    evaluations: "uniform" every interval-th step, "logsnr" at equal log-SNR
+    spacing, "abar" at equal alpha_bar spacing. Step 0 always refreshes."""
+    T = sched.num_timesteps
+    budget = (T + interval - 1) // interval
+    mask = np.zeros(T, dtype=bool)
+    if schedule == "uniform":
+        mask[::interval] = True
+        return mask
+    abar = np.asarray(sched.alphas_cumprod_fp64, dtype=np.float64)[::-1]  # step order
+    if schedule == "abar":
+        delta = np.abs(np.diff(abar, prepend=abar[0]))
+    elif schedule == "logsnr":
+        lam = 0.5 * (np.log(abar) - np.log1p(-abar))
+        delta = np.abs(np.diff(lam, prepend=lam[0]))
+    else:
+        raise ValueError(f"unknown cache refresh schedule: {schedule!r}")
+    cum = np.cumsum(delta)
+    total = cum[-1] if cum[-1] > 0 else 1.0
+    # refresh where the accumulated signal crosses the next of `budget` equal
+    # thresholds, moving on to the next free step where several land in one
+    thresholds = np.arange(budget) * (total / budget)
+    crossed = np.searchsorted(cum, thresholds, side="left")
+    last = -1
+    for c in crossed:
+        pos = max(int(c), last + 1)
+        if pos >= T:
+            break
+        mask[pos] = True
+        last = pos
+    mask[0] = True
+    # thresholds pushed past T: split the longest unrefreshed runs until the
+    # budget is spent exactly
+    while mask.sum() < budget:
+        runs = np.split(np.flatnonzero(~mask),
+                        np.where(np.diff(np.flatnonzero(~mask)) > 1)[0] + 1)
+        longest = max(runs, key=len)
+        mask[longest[len(longest) // 2]] = True
+    return mask
+
+
+def _cached_loop(step_kind: str, model_full_fn: Callable, model_cached_fn: Callable, shape,
+                 sched: DiffusionSchedule, *, refresh_mask, generator=None, noise=None,
+                 step_noise=None, clip_denoised: bool = True, denoised_fn=None, cond_fn=None,
+                 eta: float = 0.0, dtype=torch.float32):
+    """Sampling with a FORA-style layer cache (arXiv:2407.01425): where
+    `refresh_mask` (step order) is set, the full model runs and refreshes a
+    per-layer cache of its branch outputs; elsewhere the cache is replayed,
+    which recomputes only the timestep-dependent adaLN gates.
+
+        model_full_fn(x, t)          -> (model_output, cache)
+        model_cached_fn(x, t, cache) -> model_output
+
+    JAX has two loops, a period-tiled scan for the uniform mask
+    (`_cached_loop`, :298) and a scan over `lax.cond` for any mask
+    (`_cached_loop_masked`, :244); a Python loop needs only the second. Step
+    0 always refreshes. All-True is the plain loop: same step math, same
+    noise."""
+    assert step_kind in ("p", "ddim")
+    x = _init_noise(shape, noise, generator, dtype, sched.timestep_map.device)
+    shape = tuple(x.shape)
+    T = sched.num_timesteps
+    refresh = np.asarray(refresh_mask, dtype=bool).copy()
+    if refresh.shape != (T,):
+        raise ValueError(f"refresh_mask must be ({T},), got {refresh.shape}")
+    refresh[0] = True  # the first step fills the cache
+    needs_noise = step_kind == "p" or eta != 0.0
+    if step_noise is not None:
+        step_noise = torch.as_tensor(step_noise, dtype=dtype, device=x.device)
+        if tuple(step_noise.shape) != (T, *shape):
+            raise ValueError(f"step_noise must be (T, *shape) = {(T, *shape)}, "
+                             f"got {tuple(step_noise.shape)}")
+    elif needs_noise and generator is None:
+        raise ValueError("stochastic sampling needs `generator` or `step_noise`")
+    cache = None
+    for k in range(T):
+        i = T - 1 - k
+        t = torch.full((shape[0],), i, dtype=torch.int64, device=x.device)
+        t_model = sched.timestep_map_host[i]
+        if refresh[k]:
+            (model_output, cache), cond_grad = gaussian.model_call(model_full_fn, x, t_model,
+                                                                   cond_fn)
+        else:
+            model_output, cond_grad = gaussian.model_call(
+                lambda x_, t_: model_cached_fn(x_, t_, cache), x, t_model, cond_fn)
+        n = None
+        if needs_noise:
+            n = (step_noise[k] if step_noise is not None else
+                 torch.randn(shape, generator=generator, dtype=dtype, device=x.device))
+        x = _apply_step(step_kind, sched, model_output, x, t, n, clip_denoised=clip_denoised,
+                        denoised_fn=denoised_fn, cond_grad=cond_grad, eta=eta).sample
+    return x
+
+
+def _refresh_mask(sched, interval, refresh_schedule, force_refresh_mask):
+    if interval < 1:
+        raise ValueError(f"interval must be >= 1, got {interval}")
+    mask = cache_refresh_mask(sched, interval, refresh_schedule)
+    if force_refresh_mask is not None:
+        mask = mask | np.asarray(force_refresh_mask, dtype=bool)
+    return mask
+
+
+def p_sample_loop_cached(model_full_fn: Callable, model_cached_fn: Callable, shape,
+                         sched: DiffusionSchedule, *, interval: int,
+                         refresh_schedule: str = "uniform", force_refresh_mask=None,
+                         generator=None, noise=None, step_noise=None,
+                         clip_denoised: bool = True, denoised_fn=None, cond_fn=None,
+                         dtype=torch.float32):
+    """DDPM ancestral sampling with the layer cache (`_cached_loop`): the
+    refreshes of `cache_refresh_mask(sched, interval, refresh_schedule)`,
+    OR `force_refresh_mask` ((T,) bool, step order; the guidance
+    interval's band entry)."""
+    return _cached_loop("p", model_full_fn, model_cached_fn, shape, sched,
+                        refresh_mask=_refresh_mask(sched, interval, refresh_schedule,
+                                                   force_refresh_mask),
+                        generator=generator, noise=noise, step_noise=step_noise,
+                        clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+                        dtype=dtype)
+
+
+def ddim_sample_loop_cached(model_full_fn: Callable, model_cached_fn: Callable, shape,
+                            sched: DiffusionSchedule, *, interval: int,
+                            refresh_schedule: str = "uniform", force_refresh_mask=None,
+                            generator=None, noise=None, step_noise=None,
+                            clip_denoised: bool = True, denoised_fn=None, cond_fn=None,
+                            eta: float = 0.0, dtype=torch.float32):
+    """DDIM sampling with the layer cache (see `p_sample_loop_cached`)."""
+    return _cached_loop("ddim", model_full_fn, model_cached_fn, shape, sched,
+                        refresh_mask=_refresh_mask(sched, interval, refresh_schedule,
+                                                   force_refresh_mask),
+                        generator=generator, noise=noise, step_noise=step_noise,
+                        clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+                        eta=eta, dtype=dtype)
 
 
 def dpm_solver_coefficients(sched: DiffusionSchedule) -> dict:

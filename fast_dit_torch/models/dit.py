@@ -11,10 +11,17 @@ dict, as the reference expects, but not a parameter, so it stays fp32 when
 training stores the parameters in bf16. Parameters are fp32 unless the
 trainer casts them; `dtype` is the compute dtype.
 
-`remat=True` checkpoints every block (`torch.utils.checkpoint`, non-reentrant):
-the backward recomputes the whole block, the JAX "nothing" policy
-(`fast_dit_tpu/models/dit.py:133-146`). The "attn" and "attn_mlp" policies,
-which keep branch outputs, are not ported yet.
+`remat=True` checkpoints every block (`torch.utils.checkpoint`,
+non-reentrant) under one of JAX's policies (`fast_dit_tpu/models/dit.py:133-146`):
+"nothing" recomputes the whole block, "attn" and "attn_mlp" also keep the
+branch outputs `attn_out` (and `mlp_out`), as regions of their own
+(`DiTBlock.remat_forward`). Every policy gives the gradients of no remat
+bit for bit.
+
+The layer cache of the cached samplers (`:99-100,212-226`): `want_cache=True`
+also returns (attn_outs, mlp_outs), each stacked on a leading layer axis;
+`cache=` replays them through `DiTBlock.cached_step`, with fresh adaLN
+gates and no attention, so a cached call launches no kernel.
 
 The constructor builds the model on `device` ("cuda" unless the caller asks
 for the CPU) and initialises it from `seed` with a CPU `torch.Generator`,
@@ -28,7 +35,6 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..utils.device import resolve_device
 from .layers import DiTBlock, FinalLayer, LabelEmbedder, PatchEmbed, TimestepEmbedder
@@ -36,9 +42,8 @@ from .pos_embed import get_2d_sincos_pos_embed
 
 __all__ = ["DiT", "DiT_models", "dit_config", "REMAT_POLICIES"]
 
-# what the backward keeps instead of recomputing, with remat on; the JAX
-# package also has "attn" and "attn_mlp"
-REMAT_POLICIES = ("nothing",)
+# what the backward keeps instead of recomputing, with remat on
+REMAT_POLICIES = ("nothing", "attn", "attn_mlp")
 
 
 def _xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
@@ -59,8 +64,8 @@ class DiT(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"remat policy {remat_policy!r} is not ported yet; the port "
-                             f"has {REMAT_POLICIES}")
+            raise ValueError(f"unknown remat policy {remat_policy!r}; the policies are "
+                             f"{REMAT_POLICIES}")
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -71,6 +76,7 @@ class DiT(nn.Module):
         self.num_classes = num_classes
         self.dtype = dtype
         self.remat = remat
+        self.remat_policy = remat_policy
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size, dtype=dtype)
         self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
@@ -116,43 +122,64 @@ class DiT(nn.Module):
         x = torch.einsum("nhwpqc->nchpwq", x)
         return x.reshape(x.shape[0], c, h * p, w * p)
 
-    def forward(self, x, t, y, *, train=False, force_drop_ids=None, generator=None, ring=None):
+    def forward(self, x, t, y, *, train=False, force_drop_ids=None, generator=None, ring=None,
+                cache=None, want_cache=False):
         """x: (B, C, H, W), t: (B,) int timesteps, y: (B,) int labels ->
         (B, out_channels, H, W) fp32. With `train`, labels are dropped to
         the null class with probability class_dropout_prob, drawn from
         `generator`. With `ring` (`parallel/sequence.py`), the blocks and the
         final layer run on the token shards of the ring, with ring attention,
-        and the shards are gathered before `unpatchify`."""
+        and the shards are gathered before `unpatchify`. With `want_cache`,
+        returns (out, (attn_outs, mlp_outs)), each (depth, B, N, D); with
+        `cache=(attn_outs, mlp_outs)` the blocks replay it."""
         x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
         t_emb = self.t_embedder(t)
         y_emb = self.y_embedder(y, train, force_drop_ids, generator)
         c = t_emb + y_emb.to(t_emb.dtype)
         if ring is not None:
+            if cache is not None or want_cache:
+                raise ValueError("the layer cache runs on unsharded tokens")
             x, c = ring.shard(x), ring.expand(c)
         remat = self.remat and torch.is_grad_enabled()
-        for block in self.blocks:
-            if remat:
-                # blocks draw no random numbers: no RNG state to keep
-                x = checkpoint(block, x, c, ring, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = block(x, c, ring)
+        new_cache = None
+        if cache is not None:
+            attn_outs, mlp_outs = cache
+            for block, a, m in zip(self.blocks, attn_outs, mlp_outs):
+                x = block.cached_step(x, c, a, m)
+        elif want_cache:
+            branches = []
+            for block in self.blocks:
+                x, outs = block.full_step(x, c)
+                branches.append(outs)
+            new_cache = tuple(torch.stack(outs) for outs in zip(*branches))
+        else:
+            for block in self.blocks:
+                x = (block.remat_forward(x, c, ring, self.remat_policy) if remat
+                     else block(x, c, ring))
         x = self.final_layer(x, c)
         if ring is not None:
             x = ring.unshard(x)
-        return self.unpatchify(x).float()
+        out = self.unpatchify(x).float()
+        return (out, new_cache) if want_cache else out
 
-    def forward_with_cfg(self, x, t, y, cfg_scale, guidance_channels: int = 3):
+    def forward_with_cfg(self, x, t, y, cfg_scale, guidance_channels: int = 3, *, cache=None,
+                         want_cache=False):
         """Classifier-free-guidance doubled-batch forward. The batch is
         [cond ; uncond]; only the first half of x is used (mirrored), and
         guidance applies to the first `guidance_channels` channels only (3,
-        the reference's quirk; pass `in_channels` for standard CFG)."""
+        the reference's quirk; pass `in_channels` for standard CFG).
+        `cache` and `want_cache` are `forward`'s."""
         half = x[: x.shape[0] // 2]
-        model_out = self(torch.cat([half, half], dim=0), t, y)
+        model_out = self(torch.cat([half, half], dim=0), t, y, cache=cache,
+                         want_cache=want_cache)
+        if want_cache:
+            model_out, new_cache = model_out
         eps, rest = model_out[:, :guidance_channels], model_out[:, guidance_channels:]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         eps = torch.cat([half_eps, half_eps], dim=0)
-        return torch.cat([eps, rest], dim=1)
+        out = torch.cat([eps, rest], dim=1)
+        return (out, new_cache) if want_cache else out
 
 
 def dit_config(depth, hidden_size, patch_size, num_heads):

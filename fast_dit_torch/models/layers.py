@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import RING, attention_qkv, resolve_backend
 
@@ -196,7 +197,10 @@ class DiTBlock(nn.Module):
 
     `forward` is the standard block; `full_step` also returns the attention
     and MLP branch outputs, and `cached_step` reuses them with fresh adaLN
-    gates (the layer cache the cached samplers will use).
+    gates (the layer cache of the cached samplers). `remat_forward` runs the
+    block under one of JAX's remat policies (`fast_dit_tpu/models/dit.py:133-146`),
+    with the same operations in the same order as `full_step`, so its
+    gradients equal the plain block's bit for bit.
     """
 
     def __init__(self, hidden_size, num_heads, mlp_ratio=4.0, dtype=torch.float32,
@@ -211,16 +215,59 @@ class DiTBlock(nn.Module):
     def _modulation(self, c):
         return self.adaLN_modulation(c).chunk(6, dim=-1)
 
+    def _attn_branch(self, x, shift_msa, scale_msa, ring=None):
+        return self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa), ring)
+
+    def _mlp_branch(self, x, gate_msa, attn_out, shift_mlp, scale_mlp):
+        """(x + gate_msa attn_out, mlp_out)."""
+        x = x + gate_msa[:, None, :] * attn_out
+        return x, self.mlp(modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp))
+
+    def _after_attn(self, x, gate_msa, attn_out, shift_mlp, scale_mlp, gate_mlp):
+        x, mlp_out = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp)
+        return x + gate_mlp[:, None, :] * mlp_out
+
     def forward(self, x, c, ring=None):
         return self.full_step(x, c, ring)[0]
 
     def full_step(self, x, c, ring=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
-        attn_out = self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa), ring)
-        x = x + gate_msa[:, None, :] * attn_out
-        mlp_out = self.mlp(modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp))
+        attn_out = self._attn_branch(x, shift_msa, scale_msa, ring)
+        x, mlp_out = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp)
         x = x + gate_mlp[:, None, :] * mlp_out
         return x, (attn_out, mlp_out)
+
+    def remat_forward(self, x, c, ring=None, policy="nothing"):
+        """The block under `torch.utils.checkpoint` (non-reentrant), keeping
+        for the backward what JAX's policy keeps:
+
+        - "nothing": the block is one region; only its input is kept.
+        - "attn": the attention branch and the rest are two regions; the
+          branch output `attn_out` is kept because the second region takes
+          it as input.
+        - "attn_mlp": the attention branch and the MLP branch are regions,
+          the last residual add is outside, so `attn_out` and `mlp_out` are
+          kept (the gate's product saves `mlp_out`).
+
+        Where there are regions, the adaLN modulation (B, 6D) runs outside
+        them and is kept too; JAX recomputes it. In every policy the
+        backward runs the attention branch again, since its kernel's
+        backward needs the forward's output and row statistics: two
+        forward-kernel launches and one backward launch per block and step.
+        """
+        kw = dict(use_reentrant=False, preserve_rng_state=False)  # blocks draw nothing
+        if policy == "nothing":
+            return checkpoint(self, x, c, ring, **kw)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
+        attn_out = checkpoint(self._attn_branch, x, shift_msa, scale_msa, ring, **kw)
+        if policy == "attn":
+            return checkpoint(self._after_attn, x, gate_msa, attn_out, shift_mlp, scale_mlp,
+                              gate_mlp, **kw)
+        if policy != "attn_mlp":
+            raise ValueError(f"unknown remat policy {policy!r}")
+        x, mlp_out = checkpoint(self._mlp_branch, x, gate_msa, attn_out, shift_mlp, scale_mlp,
+                                **kw)
+        return x + gate_mlp[:, None, :] * mlp_out
 
     def cached_step(self, x, c, attn_out, mlp_out):
         _, _, gate_msa, _, _, gate_mlp = self._modulation(c)

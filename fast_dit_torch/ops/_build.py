@@ -39,9 +39,10 @@ SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
 
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel, and nowhere else (the two backwards count one per
-# call, though each launches two passes)
+# call, though each launches two passes; the fused update counts its fp32-nu
+# and its bf16-nu instantiation apart)
 launch_counts = {"attention_fwd": 0, "attention_bwd": 0, "fused_adamw_ema": 0,
-                 "ring_hop_fwd": 0, "ring_hop_bwd": 0}
+                 "fused_adamw_ema_nu_bf16": 0, "ring_hop_fwd": 0, "ring_hop_bwd": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}

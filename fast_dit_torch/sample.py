@@ -13,6 +13,11 @@ DPM-Solver++(2M) (`dpm`), UniPC (`unipc`), or, for a flow-matching
 checkpoint (built with `learn_sigma=False`, CFG over all channels), the
 Euler or Heun flow ODE. `--cfg-interval LO HI` guides only the steps whose
 noise level lies in [LO, HI] and runs the conditional half alone elsewhere.
+`--cache-interval K` (> 1, DDPM and DDIM) runs the FORA layer cache: a full
+model call on ceil(steps / K) refresh steps placed by `--cache-schedule`
+(uniform, logsnr or abar), cached calls that skip attention and the MLP in
+between; with `--cfg-interval` one doubled-batch cache serves both halves
+and every band entry refreshes.
 The VAE weights are local diffusers files: `--vae-ckpt`, else
 `SD_VAE_PATH`, else `pretrained_models/sd-vae-ft-{--vae}`. Without them the
 latents go to `sample.npy` and a latent preview to `sample.png`, as
@@ -24,21 +29,23 @@ downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
 perturbation of every parameter, since the zero-initialised heads would
 otherwise make every output zero.
 
-Not ported yet, refused with a message (`check_args`): `--cache-interval`
-> 1, `--tome-ratio`, `--tome-mlp` and `--quantize`. Runs on the card unless
-`--device cpu` is given.
+Not ported yet, refused with a message (`check_args`): `--tome-ratio`,
+`--tome-mlp` and `--quantize`. Runs on the card unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .ckpt import load_torch_checkpoint, load_vae, resolve_vae_path
-from .diffusion import create_diffusion, flow_sample_loop, guidance_interval_fn
+from .diffusion import (create_diffusion, flow_sample_loop, guidance_interval_cached_fns,
+                        guidance_interval_fn)
 from .models import DiT_models, decode_from_latents
 from .ops.attention import BACKENDS
 from .utils.device import resolve_device, tf32
@@ -54,7 +61,6 @@ def check_args(args, prog: str = "fast_dit_torch.sample") -> None:
     """Raise SystemExit with a message for what the port does not run yet
     and for flags that contradict each other."""
     refused = {
-        "--cache-interval > 1": args.cache_interval > 1,
         "--tome-ratio > 0": args.tome_ratio > 0,
         "--tome-mlp": args.tome_mlp,
         f"--quantize {args.quantize}": args.quantize is not None,
@@ -62,6 +68,13 @@ def check_args(args, prog: str = "fast_dit_torch.sample") -> None:
     bad = [flag for flag, on in refused.items() if on]
     if bad:
         raise SystemExit(f"{prog}: {', '.join(bad)} not ported yet (see ROADMAP.md)")
+    if args.cache_interval > 1 and args.sampler in FLOW_SAMPLERS:
+        raise SystemExit(f"{prog}: --sampler euler/heun integrate the flow ODE "
+                         f"(diffusion/flow.py); the layer cache and the DDPM sigma band are "
+                         f"discrete-chain features")
+    if args.cache_interval > 1 and args.sampler in ("dpm", "unipc"):
+        raise SystemExit(f"{prog}: --cache-interval composes with ddpm/ddim; dpm/unipc are "
+                         f"already the honest-compute fast path (use fewer steps instead)")
     if args.cfg_interval is not None and args.sampler in FLOW_SAMPLERS:
         raise SystemExit(f"{prog}: --cfg-interval is a band of the DDPM noise levels; "
                          f"--sampler {args.sampler} integrates the flow ODE")
@@ -132,26 +145,51 @@ def decode(vae, latents: torch.Tensor) -> torch.Tensor:
         return decode_from_latents(vae, latents.to(next(vae.parameters()).device))
 
 
+class CachedModelFns(NamedTuple):
+    """The model of a layer-cached chain: a full call that returns the
+    cache, a cached call that replays it, and the steps that must refresh
+    besides the schedule's (the guidance interval's band entries), or None."""
+
+    full: Callable
+    cached: Callable
+    forced: Optional[object]
+
+
 def make_model_fn(args, model, diffusion, y: torch.Tensor):
     """model_fn(x, t) of the chain for the conditional labels y (n,): at
     --cfg-scale <= 1 the model itself on n latents; else `forward_with_cfg`
     on the doubled batch with labels [y; null] (a flow model guides all its
     channels), and with --cfg-interval only inside the band, the
-    conditional half alone elsewhere."""
+    conditional half alone elsewhere. With --cache-interval > 1, the
+    `CachedModelFns` of the same model."""
+    cond_fn = lambda x, t, **kw: model(x, t, y, **kw)
     if args.cfg_scale <= 1.0:
-        return lambda x, t: model(x, t, y)
-    yy = torch.cat([y, torch.full_like(y, args.num_classes)])
-    kw = {"guidance_channels": model.in_channels} if args.sampler in FLOW_SAMPLERS else {}
-    cfg_fn = lambda x, t: model.forward_with_cfg(x, t, yy, args.cfg_scale, **kw)
+        apply = cond_fn
+    else:
+        yy = torch.cat([y, torch.full_like(y, args.num_classes)])
+        gkw = {"guidance_channels": model.in_channels} if args.sampler in FLOW_SAMPLERS else {}
+        apply = lambda x, t, **kw: model.forward_with_cfg(x, t, yy, args.cfg_scale, **gkw, **kw)
+    if args.cache_interval > 1:
+        if args.cfg_interval is not None:
+            return CachedModelFns(*guidance_interval_cached_fns(
+                apply, cond_fn, diffusion.schedule, *args.cfg_interval))
+        return CachedModelFns(lambda x, t: apply(x, t, want_cache=True),
+                              lambda x, t, cache: apply(x, t, cache=cache), None)
     if args.cfg_interval is None:
-        return cfg_fn
-    return guidance_interval_fn(cfg_fn, lambda x, t: model(x, t, y), diffusion.schedule,
-                                *args.cfg_interval)
+        return apply
+    return guidance_interval_fn(apply, cond_fn, diffusion.schedule, *args.cfg_interval)
 
 
 def run_chain(args, diffusion, model_fn, z: torch.Tensor, generator: torch.Generator):
     """--sampler's chain from x_T = z; DDPM and DDIM draw their step noise
-    from `generator`, the others are deterministic."""
+    from `generator`, the others are deterministic. A `CachedModelFns`
+    runs the layer-cached DDPM or DDIM loop."""
+    if isinstance(model_fn, CachedModelFns):
+        loop = (diffusion.p_sample_loop_cached if args.sampler == "ddpm"
+                else diffusion.ddim_sample_loop_cached)
+        return loop(model_fn.full, model_fn.cached, z.shape, interval=args.cache_interval,
+                    refresh_schedule=args.cache_schedule, force_refresh_mask=model_fn.forced,
+                    noise=z, generator=generator, clip_denoised=False)
     if args.sampler in FLOW_SAMPLERS:
         return flow_sample_loop(model_fn, z.shape, num_steps=args.num_sampling_steps,
                                 method=args.sampler, noise=z)
@@ -224,10 +262,13 @@ def add_sampler_flags(parser) -> None:
                         help="guide only where sigma(t) = sqrt((1-abar)/abar) is in "
                              "[LO, HI]; elsewhere the conditional half alone")
     parser.add_argument("--cache-interval", type=int, default=1,
-                        help="FORA layer caching: only 1 (off) is ported")
+                        help="FORA layer caching (ddpm/ddim): a full model call every K-th "
+                             "step, cached adaLN-only calls between; 1 is off")
     parser.add_argument("--cache-schedule", type=str, default="uniform",
                         choices=["uniform", "logsnr", "abar"],
-                        help="placement of cache refreshes (no effect at --cache-interval 1)")
+                        help="placement of the cache refreshes, same budget: every K-th step, "
+                             "equal log-SNR or equal alpha_bar spacing (no effect at "
+                             "--cache-interval 1)")
     parser.add_argument("--tome-ratio", type=float, default=0.0,
                         help="token merging: only 0 (off) is ported")
     parser.add_argument("--tome-mlp", action="store_true", help="not ported yet")

@@ -8,7 +8,8 @@ per-process seed `global_seed * world + rank`, the total rounded up to a
 multiple of the global batch, labels drawn uniformly in [0, num_classes),
 CFG only when `--cfg-scale` > 1 (doubled batch, null label `num_classes`),
 the chain of `--sampler` (DDPM, DDIM, DPM-Solver++, UniPC, or the flow ODE
-for a flow checkpoint; `--time-spacing`, `--cfg-interval`) with
+for a flow checkpoint; `--time-spacing`, `--cfg-interval`, and the layer
+cache `--cache-interval`/`--cache-schedule` for DDPM and DDIM) with
 `clip_denoised=False`, as `sample.py` runs it, the SD-VAE decode at /0.18215,
 uint8 quantisation `clamp(127.5 x + 128, 0, 255)`, rank-strided
 `{index:06d}.png` files written on a thread pool, and after a barrier rank
@@ -26,7 +27,7 @@ does. `--ckpt random` is the sampler's seeded init plus its 0.02
 perturbation, the same weights on every rank.
 
 Not ported yet, refused with a message (`sample.check_args`):
-`--cache-interval` > 1, `--tome-ratio` > 0, `--tome-mlp` and `--quantize`.
+`--tome-ratio` > 0, `--tome-mlp` and `--quantize`.
 Runs on the card unless `--device cpu` is given.
 """
 

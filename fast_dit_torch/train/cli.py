@@ -9,20 +9,26 @@ are the reference trainer's: bf16 activations over fp32 parameters, remat
 on (the "nothing" policy), the 1000-step learned-sigma eps objective,
 uniform t, label dropout 0.1, AdamW lr 1e-4 wd 0, EMA 0.9999 warm-started
 as a copy. `--mixed-precision` stores bf16 parameters behind an fp32 master;
-`--fused-optimizer` adds bf16 mu and runs the fused AdamW + EMA kernel.
-`--objective flow` trains the velocity-matching loss on `--flow-path` with
-a DiT built with `learn_sigma=False`; `--schedule-sampler
-loss-second-moment` draws eps timesteps by their loss history (not with
-flow, which draws continuous t).
+`--fused-optimizer` adds bf16 mu and runs the fused AdamW + EMA kernel;
+with it, `--nu-dtype bf16` stores nu in bf16 and `--factored-nu` factors
+it per JAX leaf. `--remat-policy` picks what the checkpointed blocks keep
+("nothing", "attn", "attn_mlp"). `--objective flow` trains the
+velocity-matching loss on `--flow-path` with a DiT built with
+`learn_sigma=False`; `--schedule-sampler loss-second-moment` draws eps
+timesteps by their loss history (not with flow, which draws continuous t).
 
 Checkpoints are `torch.save` files in the reference trainer's layout,
-`{"model", "ema", "opt", "args"}` under the reference torch names, every
-`--ckpt-every` steps and at the end; `--export-pt` also writes the EMA state
-dict alone. Runs on the card unless `--device cpu` is given.
+`{"model", "ema", "opt", "args"}` under the reference torch names, plus the
+step, the timestep sampler's state and the generator's
+(`ckpt/checkpoint.py`), every `--ckpt-every` steps and at the end;
+`--export-pt` also writes the EMA state dict alone. `--resume` re-enters the
+latest experiment dir of the model, restores its latest checkpoint and
+continues the step count; as in JAX (`train.py:126-156`), the data
+iterator starts again at epoch 0 and no batch is skipped. Runs on the card
+unless `--device cpu` is given.
 
-Not ported yet, refused with a message: `--resume`, `--tp`, `--fsdp`,
-`--ep`, `--native-loader`, `--remat-policy attn|attn_mlp`, `--nu-dtype bf16`
-and `--factored-nu`. `--scan-unroll` is accepted and has no effect (the blocks
+Not ported yet, refused with a message: `--tp`, `--fsdp`, `--ep` and
+`--native-loader`. `--scan-unroll` is accepted and has no effect (the blocks
 are a Python loop, not a scan).
 """
 
@@ -35,36 +41,33 @@ import time
 
 import torch
 
+from ..ckpt import CheckpointManager
 from ..data import FeatureDataset, feature_batches, synthetic_features
 from ..diffusion import create_diffusion, create_named_schedule_sampler
 from ..models import REMAT_POLICIES, DiT_models
 from ..ops.attention import BACKENDS
-from ..ops.fused_update import FusedAdamWEmaState
 from ..utils.device import resolve_device
-from ..utils.logging import create_logger, make_experiment_dir
-from .mixed_precision import get_master_params
-from .train_lib import TrainState, create_train_state, ema_state_dict, make_train_step
+from ..utils.logging import create_logger, find_latest_experiment_dir, make_experiment_dir
+from .train_lib import create_train_state, ema_state_dict, make_train_step
 
-__all__ = ["parse_args", "check_args", "build", "device_batches", "save_checkpoint", "main"]
+__all__ = ["parse_args", "check_args", "build", "device_batches", "main"]
 
 
 def check_args(args) -> None:
     """Raise SystemExit with a message for what the port does not run yet."""
     refused = {
-        "--resume": args.resume,
         "--tp > 1": args.tp > 1,
         "--fsdp": args.fsdp,
         "--ep > 1": args.ep > 1,
         "--native-loader": args.native_loader,
-        f"--remat-policy {args.remat_policy}": (not args.no_remat
-                                                and args.remat_policy not in REMAT_POLICIES),
-        "--nu-dtype bf16": args.nu_dtype != "fp32",
-        "--factored-nu": args.factored_nu,
     }
     bad = [flag for flag, on in refused.items() if on]
     if bad:
         raise SystemExit(f"fast_dit_torch.train: {', '.join(bad)} not ported yet "
                          f"(see ROADMAP.md)")
+    if (args.nu_dtype != "fp32" or args.factored_nu) and not args.fused_optimizer:
+        raise SystemExit("fast_dit_torch.train: --nu-dtype and --factored-nu are "
+                         "fused-optimizer features; add --fused-optimizer")
     if args.objective == "flow" and args.schedule_sampler != "uniform":
         raise SystemExit("fast_dit_torch.train: --schedule-sampler is discrete-time; "
                          "--objective flow draws continuous t")
@@ -80,7 +83,7 @@ def build(args):
     model (a flow model predicts the velocity, with no learned-sigma
     channels), the 1000-step training process, the optimizer route, the
     timestep sampler and the step, whose draws come from a generator seeded
-    with --global-seed."""
+    with --global-seed (the state carries it)."""
     device = resolve_device(args.device)
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
@@ -93,11 +96,13 @@ def build(args):
     sampler_state = (None if args.schedule_sampler == "uniform" else
                      create_named_schedule_sampler(args.schedule_sampler,
                                                    diffusion.num_timesteps, device))
+    generator = torch.Generator(device=device).manual_seed(args.global_seed)
     state = create_train_state(model, lr=None if args.fused_optimizer else args.lr,
                                mixed_precision=args.mixed_precision,
                                fused_optimizer=args.fused_optimizer,
-                               sampler_state=sampler_state)
-    generator = torch.Generator(device=device).manual_seed(args.global_seed)
+                               nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None,
+                               factored_nu=args.factored_nu, sampler_state=sampler_state,
+                               generator=generator)
     train_step = make_train_step(model, diffusion.schedule, ema_decay=args.ema_decay,
                                  grad_accum=args.grad_accum, lr=args.lr,
                                  objective=args.objective, flow_path=args.flow_path,
@@ -128,24 +133,6 @@ def device_batches(args, device, logger=None):
                for b in batches)
 
 
-def _opt_state_dict(opt) -> dict:
-    if isinstance(opt, FusedAdamWEmaState):
-        return {"count": opt.count, "mu": opt.mu, "nu": opt.nu, "master": opt.master}
-    return opt.state_dict()
-
-
-def save_checkpoint(path: str, state: TrainState, args) -> None:
-    """The reference trainer's checkpoint: {"model", "ema", "opt", "args"};
-    "model" holds the fp32 weights (the master, where there is one)."""
-    model_sd = {k: v.detach().float() for k, v in state.model.state_dict().items()}
-    master = get_master_params(state.opt)
-    if master is not None:
-        names = [n for n, _ in state.model.named_parameters()]
-        model_sd.update(dict(zip(names, master)))
-    torch.save({"model": model_sd, "ema": ema_state_dict(state),
-                "opt": _opt_state_dict(state.opt), "args": args}, path)
-
-
 def main(args) -> None:
     check_args(args)
     try:
@@ -154,13 +141,21 @@ def main(args) -> None:
         raise SystemExit(f"fast_dit_torch.train: {e}") from None
     if args.matmul_precision != "default":
         torch.set_float32_matmul_precision(args.matmul_precision)
-    experiment_dir = make_experiment_dir(args.results_dir, args.model)
+    # --resume re-enters the latest experiment dir instead of making a new one
+    experiment_dir = ((find_latest_experiment_dir(args.results_dir, args.model)
+                       if args.resume else None)
+                      or make_experiment_dir(args.results_dir, args.model))
     checkpoint_dir = f"{experiment_dir}/checkpoints"
     logger = create_logger(experiment_dir)
     logger.info(f"Experiment directory created at {experiment_dir}")
 
     model, diffusion, state, train_step = build(args)
     logger.info(f"DiT Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    ckpt = CheckpointManager(checkpoint_dir)
+    if args.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        logger.info(f"Resumed from checkpoint at step {state.step}")
+    # the data starts again at epoch 0 after a resume, as in JAX
     epochs = device_batches(args, device, logger)
 
     profiler = None
@@ -171,7 +166,7 @@ def main(args) -> None:
         profiler = profile(activities=acts)
         profiler.__enter__()
 
-    train_steps, log_steps = 0, 0
+    train_steps, log_steps = state.step, 0
     running_loss = torch.zeros((), device=device)
     start_time = time.time()
     logger.info(f"Training for {args.epochs} epochs...")
@@ -203,8 +198,7 @@ def main(args) -> None:
                     log_steps = 0
                     start_time = time.time()
                 if train_steps % args.ckpt_every == 0:
-                    save_checkpoint(f"{checkpoint_dir}/{train_steps:07d}.pt", state, args)
-                    logger.info(f"Saved checkpoint to {checkpoint_dir}/{train_steps:07d}.pt")
+                    logger.info(f"Saved checkpoint to {ckpt.save(train_steps, state, args)}")
                 if preempted["flag"] or (args.max_steps and train_steps >= args.max_steps):
                     done = True
                     break
@@ -219,8 +213,7 @@ def main(args) -> None:
         os.makedirs(args.profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
         logger.info(f"Wrote profiler trace to {args.profile_dir}")
-    save_checkpoint(f"{checkpoint_dir}/{train_steps:07d}.pt", state, args)
-    logger.info(f"Saved checkpoint to {checkpoint_dir}/{train_steps:07d}.pt")
+    logger.info(f"Saved checkpoint to {ckpt.save(train_steps, state, args)}")
     if args.export_pt:
         torch.save(ema_state_dict(state), f"{checkpoint_dir}/{train_steps:07d}-ema.pt")
         logger.info(f"Exported the EMA state dict at step {train_steps}")
@@ -257,9 +250,10 @@ def parse_args(argv=None):
     parser.add_argument("--no-remat", action="store_true",
                         help="disable per-block gradient checkpointing")
     parser.add_argument("--remat-policy", type=str, default="nothing",
-                        choices=["nothing", "attn", "attn_mlp"],
-                        help="what the backward keeps instead of recomputing "
-                             "(only 'nothing' is ported)")
+                        choices=list(REMAT_POLICIES),
+                        help="what the backward keeps instead of recomputing: nothing, the "
+                             "attention branch output (attn), or both branch outputs "
+                             "(attn_mlp)")
     parser.add_argument("--attn-backend", type=str, default="auto", choices=BACKENDS,
                         help="auto: the CUDA kernels on the card; einsum: the plain version")
     parser.add_argument("--scan-unroll", type=int, default=1,
@@ -279,10 +273,15 @@ def parse_args(argv=None):
                         help="bf16 params, bf16 mu, fp32 nu/master/EMA updated by the "
                              "fused AdamW + EMA kernel")
     parser.add_argument("--nu-dtype", type=str, default="fp32", choices=["fp32", "bf16"],
-                        help="only fp32 is ported")
-    parser.add_argument("--factored-nu", action="store_true", help="not ported yet")
+                        help="Adam second-moment storage under --fused-optimizer (bf16 "
+                             "halves it)")
+    parser.add_argument("--factored-nu", action="store_true",
+                        help="Adafactor-style factored second moment for the large leaves "
+                             "(--fused-optimizer)")
     parser.add_argument("--max-steps", type=int, default=0)
-    parser.add_argument("--resume", action="store_true", help="not ported yet")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue the latest experiment dir of --model from its latest "
+                             "checkpoint")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler chrome trace here")
     parser.add_argument("--matmul-precision", type=str, default="default",

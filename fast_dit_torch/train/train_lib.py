@@ -17,7 +17,9 @@ three optimizer routes updates the model's parameters in place:
 - `mixed_precision`: bf16 parameters with an fp32 master stepped by AdamW
   (`mixed_precision.masterize`); the EMA tracks the master;
 - `fused_optimizer`: bf16 parameters, bf16 mu, fp32 nu, master and EMA,
-  all updated by the fused AdamW + EMA kernel (`ops/fused_update.py`).
+  all updated by the fused AdamW + EMA kernel (`ops/fused_update.py`);
+  `nu_dtype=torch.bfloat16` stores nu in bf16 (the kernel's bf16-nu
+  instantiation), `factored_nu` factors it per JAX leaf (`FactoredNu`).
 
 JAX threads an immutable state through a jitted step; here the state is
 updated in place and the step returns only its metrics (0-d tensors on the
@@ -37,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from ..ckpt.convert import jax_leaves
 from ..diffusion.flow import flow_training_losses
 from ..diffusion.gaussian import training_losses
 from ..diffusion.timestep_samplers import sample_timesteps, update_with_losses
@@ -55,6 +58,9 @@ class TrainState:
     ema: Dict[str, torch.Tensor]     # fp32, by parameter name
     opt: Any                         # AdamW, MasterWeightsOptimizer or FusedAdamWEmaState
     sampler_state: Any = None        # LossSecondMomentState, or None for uniform t
+    # the generator the step draws from, kept so that a checkpoint holds its
+    # state (None where the caller injects the draws)
+    generator: Optional[torch.Generator] = None
 
     def params(self) -> List[torch.Tensor]:
         return list(self.model.parameters())
@@ -75,7 +81,9 @@ def _adamw(params, lr, weight_decay):
 
 def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
                        weight_decay: Optional[float] = None, mixed_precision: bool = False,
-                       fused_optimizer: bool = False, sampler_state=None) -> TrainState:
+                       fused_optimizer: bool = False, nu_dtype: Optional[torch.dtype] = None,
+                       factored_nu: bool = False, sampler_state=None,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
     """Optimizer state and a warm-started EMA (an exact copy) for `model`.
 
     With `mixed_precision` or `fused_optimizer` the model's parameters are
@@ -83,11 +91,17 @@ def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
     values, as in JAX (`train_lib.py:81-117`). The AdamW routes take `lr`
     (default 1e-4) and `weight_decay` (default 0) here and keep fp32
     moments; the fused route (bf16 mu) takes them from `make_train_step`
-    and refuses them here, so that the two cannot disagree. `sampler_state`
-    is the timestep sampler's state (None: uniform t)."""
+    and refuses them here, so that the two cannot disagree. `nu_dtype` and
+    `factored_nu` shrink the fused route's second moment and are refused on
+    the others (`train_lib.py:101-104`). `sampler_state` is the timestep
+    sampler's state (None: uniform t); `generator` the one the step draws
+    from, which the state carries into checkpoints."""
     if fused_optimizer and (lr is not None or weight_decay is not None):
         raise ValueError("fused_optimizer=True takes lr and weight_decay from "
                          "make_train_step(lr=..., weight_decay=...), not from here")
+    if not fused_optimizer and (nu_dtype is not None or factored_nu):
+        raise ValueError("nu_dtype/factored_nu are fused-optimizer features "
+                         "(ops/fused_update.py); pass fused_optimizer=True")
     lr = 1e-4 if lr is None else lr
     weight_decay = 0.0 if weight_decay is None else weight_decay
     if fused_optimizer or mixed_precision:
@@ -97,14 +111,17 @@ def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
     if fused_optimizer:
-        opt = fused_adamw_ema_init(params, mu_dtype=torch.bfloat16)
+        opt = fused_adamw_ema_init(params, mu_dtype=torch.bfloat16,
+                                   nu_dtype=nu_dtype or torch.float32, factored=factored_nu,
+                                   leaves=jax_leaves(model) if factored_nu else None)
     elif mixed_precision:
         opt = masterize(params, lambda master: _adamw(master, lr, weight_decay))
     else:
         opt = _adamw(params, lr, weight_decay)
     source = get_master_params(opt) or params
     ema = {n: p.detach().float().clone() for n, p in zip(names, source)}
-    return TrainState(step=0, model=model, ema=ema, opt=opt, sampler_state=sampler_state)
+    return TrainState(step=0, model=model, ema=ema, opt=opt, sampler_state=sampler_state,
+                      generator=generator)
 
 
 def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:

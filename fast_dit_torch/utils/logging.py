@@ -1,10 +1,11 @@
 """Logging and experiment-dir utilities (the port's own copy of
-`fast_dit_tpu/utils/logging.py:19-53`).
+`fast_dit_tpu/utils/logging.py:19-61`).
 
 The reference trainer's logger: on the main process, ANSI-coloured
 timestamps to the console and plain ones to `log.txt`; a NullHandler
 elsewhere. Experiment dirs are `{results}/{index:03d}-{model-name}` with an
-auto-incremented index and a `checkpoints/` subdir.
+auto-incremented index and a `checkpoints/` subdir; `--resume` re-enters
+the highest-indexed one of the model (`find_latest_experiment_dir`).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import logging
 import os
 from glob import glob
 
-__all__ = ["create_logger", "make_experiment_dir"]
+__all__ = ["create_logger", "make_experiment_dir", "find_latest_experiment_dir"]
 
 
 def create_logger(logging_dir: str | None, *, is_main: bool = True) -> logging.Logger:
@@ -47,3 +48,10 @@ def make_experiment_dir(results_dir: str, model_name: str) -> str:
     exp_dir = f"{results_dir}/{index:03d}-{model_name.replace('/', '-')}"
     os.makedirs(os.path.join(exp_dir, "checkpoints"), exist_ok=True)
     return exp_dir
+
+
+def find_latest_experiment_dir(results_dir: str, model_name: str) -> str | None:
+    """The highest-indexed `NNN-{model}` dir under `results_dir`, or None."""
+    safe = model_name.replace("/", "-")
+    candidates = sorted(glob(f"{results_dir}/[0-9][0-9][0-9]-{safe}"))
+    return candidates[-1] if candidates else None

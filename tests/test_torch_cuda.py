@@ -125,6 +125,123 @@ def test_fused_update_kernel_matches_update_math(cuda, p_dtype, mu_dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16], ids=["p32", "p16"])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu32", "mu16"])
+def test_fused_update_kernel_with_bf16_nu_matches_update_math(cuda, p_dtype, mu_dtype):
+    """The kernel's bf16-nu instantiation, at sizes that are no multiple of
+    any vector width: vhat from the unrounded v32, only the stored nu
+    rounded, equal to `_update_math` in every element."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sizes = [1, 7, 33, 4097, 1000003]
+    params = [(0.1 * torch.randn(n, generator=g, device=cuda)).to(p_dtype) for n in sizes]
+    plain = [p.clone() for p in params]
+    state = fu.fused_adamw_ema_init(params, mu_dtype=mu_dtype, nu_dtype=torch.bfloat16)
+    pstate = fu.fused_adamw_ema_init(plain, mu_dtype=mu_dtype, nu_dtype=torch.bfloat16)
+    ema, pema = [w.clone() for w in state.master], [w.clone() for w in pstate.master]
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.01, ema_decay=0.99)
+    before = dict(_build.launch_counts)
+    for _ in range(3):
+        grads = [(0.01 * torch.randn(n, generator=g, device=cuda)).to(p_dtype) for n in sizes]
+        fu.fused_adamw_ema_apply(state, grads, params, ema, lr=1e-3, weight_decay=0.01,
+                                 ema_decay=0.99)
+        fu._apply_plain(pstate, grads, plain, pema, hyper)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_adamw_ema_nu_bf16"] == (
+        before["fused_adamw_ema_nu_bf16"] + 3 * len(sizes))
+    assert _build.launch_counts["fused_adamw_ema"] == before["fused_adamw_ema"]
+    for got, want in ((params, plain), (state.mu, pstate.mu), (state.nu, pstate.nu),
+                      (state.master, pstate.master), (ema, pema)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            assert torch.equal(a, b)
+
+
+def test_factored_state_on_the_card_matches_the_cpu(cuda):
+    """A small DiT's factored state, two steps: on the card the dense leaves
+    go through the kernel and equal `_apply_plain` on the card in every
+    element; the factored leaves run the same stock ops as on the CPU, whose
+    means are summed in another order: within 1e-5 of their largest value."""
+    from fast_dit_torch.ckpt import jax_leaves
+    from fast_dit_torch.models import DiT
+    model = DiT(input_size=8, hidden_size=192, depth=2, num_heads=3, num_classes=10,
+                device="cpu")
+    leaves = jax_leaves(model)
+    g = torch.Generator().manual_seed(6)
+    init = [(0.1 * torch.randn(p.shape, generator=g)).to(torch.bfloat16)
+            for p in model.parameters()]
+    grads = [[(0.01 * torch.randn(p.shape, generator=g)).to(torch.bfloat16) for p in init]
+             for _ in range(2)]
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.0, ema_decay=0.9999)
+    outs = {}
+    for run, device in (("kernel", "cuda"), ("plain", "cuda"), ("cpu", "cpu")):
+        params = [p.to(device) for p in init]
+        state = fu.fused_adamw_ema_init(params, factored=True, leaves=leaves)
+        ema = [w.clone() for w in state.master]
+        before = dict(_build.launch_counts)
+        for gs in grads:
+            gs = [x.to(device) for x in gs]
+            if run == "plain":
+                fu._apply_plain(state, gs, params, ema, hyper)
+            else:
+                fu.fused_adamw_ema_apply(state, gs, params, ema, lr=1e-3)
+        if run == "kernel":
+            dense = sum(not isinstance(v, fu.FactoredNu) for v in state.nu)
+            assert 0 < dense < len(state.nu)
+            assert _build.launch_counts["fused_adamw_ema"] == before["fused_adamw_ema"] + 2 * dense
+        outs[run] = (state, ema)
+    torch.cuda.synchronize()
+    (card, card_ema), (plain, plain_ema), (cpu, cpu_ema) = (outs[k] for k in ("kernel", "plain",
+                                                                             "cpu"))
+    for i, v in enumerate(cpu.nu):
+        if isinstance(v, fu.FactoredNu):
+            for a, b in ((card.master[i], cpu.master[i]), (card_ema[i], cpu_ema[i]),
+                         (card.nu[i].row, v.row), (card.nu[i].col, v.col)):
+                assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+        else:
+            for a, b in ((card.master[i], plain.master[i]), (card_ema[i], plain_ema[i]),
+                         (card.nu[i], plain.nu[i]), (card.mu[i], plain.mu[i])):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", [None, "nothing", "attn", "attn_mlp"])
+def test_remat_policy_launch_counts_and_gradients_on_the_card(cuda, policy):
+    """Per training step (forward + backward) of a bf16 DiT: no remat
+    launches the forward kernel once per block, every policy twice (its
+    attention region runs again in the backward); the backward kernel once
+    per block; the gradients of each policy equal no remat's."""
+    from fast_dit_torch.models import DiT
+    grads = {}
+    for p in (None, policy):
+        model = DiT(input_size=8, hidden_size=384, depth=3, num_heads=6, dtype=torch.bfloat16,
+                    remat=p is not None, remat_policy=p or "nothing", device=cuda, seed=1)
+        x = torch.randn(4, 4, 8, 8, generator=torch.Generator().manual_seed(2)).to(cuda)
+        _build.reset_launch_counts()
+        model(x, torch.tensor([1, 50, 500, 900], device=cuda), torch.tensor([1, 2, 3, 4],
+              device=cuda), train=True, force_drop_ids=torch.zeros(4, dtype=torch.long,
+              device=cuda)).square().sum().backward()
+        torch.cuda.synchronize()
+        want = 3 if p is None else 6
+        assert _build.launch_counts["attention_fwd"] == want
+        assert _build.launch_counts["attention_bwd"] == 3
+        grads[p] = torch.cat([q.grad.flatten() for q in model.parameters()])
+    assert torch.equal(grads[None], grads[policy])
+
+
+def test_a_cached_dit_call_launches_no_kernel(cuda):
+    from fast_dit_torch.models import DiT
+    model = DiT(input_size=8, hidden_size=384, depth=2, num_heads=6, dtype=torch.bfloat16,
+                device=cuda).eval()
+    x = torch.randn(4, 4, 8, 8, device=cuda)
+    t, y = torch.full((4,), 10, device=cuda), torch.tensor([1, 2, 1000, 1000], device=cuda)
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        _, cache = model.forward_with_cfg(x, t, y, 4.0, want_cache=True)
+        assert _build.launch_counts["attention_fwd"] == 2
+        out = model.forward_with_cfg(x, t - 1, y, 4.0, cache=cache)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["attention_fwd"] == 2 and torch.isfinite(out).all()
+
+
 # the ring hop: (B, Sq, Sk, H, hd); fp32 and bf16 relative to max |output|:
 # fp32, sums in other orders; bf16, the kernels round p_u, do and du to bf16
 # before their products where the plain version keeps them fp32

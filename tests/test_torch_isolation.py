@@ -46,7 +46,8 @@ def test_port_sources_exist():
                  "fast_dit_torch/data/imagenet.py", "fast_dit_torch/extract_features.py",
                  "fast_dit_torch/sample_ddp.py", "fast_dit_torch/diffusion/flow.py",
                  "fast_dit_torch/diffusion/guidance_interval.py",
-                 "fast_dit_torch/diffusion/timestep_samplers.py"):
+                 "fast_dit_torch/diffusion/timestep_samplers.py",
+                 "fast_dit_torch/ckpt/checkpoint.py"):
         assert must in rel
 
 

@@ -97,23 +97,25 @@ def test_quantize_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    # the samplers, Karras spacing and the guidance interval are ported (their
-    # runs: tests/test_torch_samplers.py); the first six cases now pair each
-    # with a flag that stays unported, which must still be refused by name
-    ["--sampler", "dpm", "--cache-interval", "2"], ["--sampler", "unipc", "--tome-ratio", "0.5"],
+    # the samplers, Karras spacing, the guidance interval and the layer cache
+    # are ported (their runs: tests/test_torch_samplers.py and
+    # tests/test_torch_cached_sampling.py); the cases that named them pair
+    # each with a flag that stays unported, which alone must be named
+    ["--sampler", "dpm", "--cache-interval", "2", "--quantize", "w8a8"],
+    ["--sampler", "unipc", "--tome-ratio", "0.5"],
     ["--sampler", "euler", "--quantize", "w8a8"], ["--sampler", "heun", "--tome-mlp"],
-    ["--time-spacing", "karras", "--cache-interval", "3"],
+    ["--time-spacing", "karras", "--cache-interval", "3", "--tome-ratio", "0.5"],
     ["--cfg-interval", "0.19", "1.61", "--tome-mlp"],
-    ["--cache-interval", "2"], ["--tome-ratio", "0.5"], ["--quantize", "w8a8"],
+    ["--cache-interval", "2", "--tome-mlp"], ["--tome-ratio", "0.5"], ["--quantize", "w8a8"],
 ])
 def test_flags_not_ported_are_refused(tmp_path, flags):
     args = cli.build_parser().parse_args(["--device", "cpu", "--ckpt", "random",
                                           "--sample-dir", str(tmp_path), *flags])
     with pytest.raises(SystemExit, match=r"not ported yet \(see ROADMAP.md\)") as e:
         cli.main(args)
-    unported = [f for f in flags if f in ("--cache-interval", "--tome-ratio", "--tome-mlp",
-                                          "--quantize")]
-    assert all(f in str(e.value) for f in unported) and "--sampler" not in str(e.value)
+    unported = [f for f in flags if f in ("--tome-ratio", "--tome-mlp", "--quantize")]
+    assert all(f in str(e.value) for f in unported)
+    assert "--sampler" not in str(e.value) and "--cache-interval" not in str(e.value)
     assert os.listdir(tmp_path) == []
 
 

@@ -148,6 +148,26 @@ def test_remat_keeps_the_sequence_parallel_gradients():
         torch.testing.assert_close(g1[n], g, rtol=1e-6, atol=1e-7, msg=n)
 
 
+@pytest.mark.parametrize("policy", ["nothing", "attn", "attn_mlp"])
+def test_remat_policies_keep_the_sequence_parallel_gradients(policy):
+    """Each remat policy around the ring (its regions recompute ring
+    attention in the backward): the output and every gradient equal the run
+    without remat, bit for bit."""
+    _, params = _jax_tiny(seed=8)
+    x, t, y = map(torch.from_numpy, _inputs(B=2, seed=9))
+    runs = []
+    for remat in (False, True):
+        model = _port_tiny(params)
+        model.remat, model.remat_policy = remat, policy
+        out = dit_sequence_parallel_forward(model, x, t, y, LocalRing(4))
+        (out ** 2).sum().backward()
+        runs.append((out.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (out0, g0), (out1, g1) = runs
+    assert torch.equal(out0, out1)
+    for n, g in g0.items():
+        assert torch.equal(g1[n], g), n
+
+
 # One rank of a gloo world of two: the ring attention and the tiny DiT's
 # sequence-parallel forward over ProcessGroupRing, with the gradients each
 # rank holds, saved for the parent to sum and compare. Imports torch and the

@@ -24,6 +24,9 @@ held to 2 lr per step (bf16 parameters also to one bf16 ulp, where a master
 rounds apart), the EMA to (1 - decay) of that.
 """
 
+import functools
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +38,7 @@ from fast_dit_tpu.diffusion import create_diffusion as jax_create_diffusion
 from fast_dit_tpu.diffusion.gaussian import training_losses as jax_training_losses
 from fast_dit_tpu.models import DiT as JaxDiT
 from fast_dit_tpu.models.layers import LabelEmbedder as JaxLabelEmbedder
+from fast_dit_tpu.ops.fused_update import FactoredNu as JaxFactoredNu
 from fast_dit_tpu.ops.fused_update import fused_adamw_ema_init as jax_fused_init
 from fast_dit_tpu.train.mixed_precision import masterize as jax_masterize
 from fast_dit_tpu.train.train_lib import TrainState as JaxTrainState
@@ -44,6 +48,7 @@ from fast_dit_torch.diffusion import create_diffusion
 from fast_dit_torch.diffusion.gaussian import training_losses
 from fast_dit_torch.models import DiT
 from fast_dit_torch.ops import _build
+from fast_dit_torch.ops.fused_update import FactoredNu
 from fast_dit_torch.train import create_train_state, make_train_step
 from fast_dit_torch.train import cli
 
@@ -167,16 +172,21 @@ def test_one_step_loss_and_grads_match_jax_pallas_backward():
 
 
 def test_remat_gives_the_same_gradients_and_refuses_unported_policies():
-    grads = []
-    for remat in (False, True):
-        model = DiT(**CFG, remat=remat, device="cpu", seed=3)
-        x = torch.randn(2, 4, 8, 8, generator=torch.Generator().manual_seed(0))
-        model(x, torch.tensor([1, 500]), torch.tensor([2, 3]), train=True,
-              force_drop_ids=torch.tensor([0, 1])).square().sum().backward()
-        grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]))
-    assert torch.equal(grads[0], grads[1])
-    with pytest.raises(ValueError, match="not ported yet"):
-        DiT(**CFG, remat=True, remat_policy="attn", device="cpu")
+    # every policy of JAX's is ported: each gives no remat's gradients bit for
+    # bit, in fp32 and bf16; a policy JAX lacks is refused
+    for dtype in (torch.float32, torch.bfloat16):
+        grads = []
+        for remat, policy in ((False, "nothing"), (True, "nothing"), (True, "attn"),
+                              (True, "attn_mlp")):
+            model = DiT(**CFG, remat=remat, remat_policy=policy, dtype=dtype, device="cpu",
+                        seed=3)
+            x = torch.randn(2, 4, 8, 8, generator=torch.Generator().manual_seed(0))
+            model(x, torch.tensor([1, 500]), torch.tensor([2, 3]), train=True,
+                  force_drop_ids=torch.tensor([0, 1])).square().sum().backward()
+            grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]))
+        assert all(torch.equal(grads[0], g) for g in grads[1:]), dtype
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        DiT(**CFG, remat=True, remat_policy="dots", device="cpu")
 
 
 def _jax_state(params, route):
@@ -278,6 +288,77 @@ def test_two_train_steps_match_jax(route, grad_accum):
             assert np.abs(w.numpy() - want_w[n]).max() <= bound, n
 
 
+@pytest.mark.parametrize("policy,nu", [("attn", None), ("attn_mlp", None), ("nothing", "bf16"),
+                                       ("nothing", "factored"), ("attn_mlp", "factored")])
+def test_two_train_steps_match_jax_under_remat_policies_and_nu_kinds(policy, nu):
+    """JAX's step with `remat_policy` and, on the fused route, a bf16 or a
+    factored nu, against the port's: losses and the gradient norm (fp32
+    gradients: LOSS_RTOL; the fused route's bf16 gradients: 2^-8, as above),
+    parameters, EMA and the second moment (bf16: one bf16 ulp of the moments,
+    2^-7, as above; factored row and col: the means of squares of
+    gradients that may sit one bf16 ulp apart, 2 x 2^-7)."""
+    fused = nu is not None
+    jmodel = JaxDiT(**CFG, class_dropout_prob=0.0, remat=True, remat_policy=policy)
+    _, params = _jax_params(0.0)
+    jsched = jax_create_diffusion("").schedule
+    if fused:
+        p16 = jax.tree.map(lambda p: p.astype(jnp.bfloat16), params)
+        opt = jax_fused_init(p16, mu_dtype=jnp.bfloat16,
+                             nu_dtype=jnp.bfloat16 if nu == "bf16" else jnp.float32,
+                             factored=nu == "factored")
+        jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=p16,
+                               ema=jax.tree.map(jnp.copy, opt.master), opt_state=opt)
+        tx = None
+    else:
+        jstate, tx = _jax_state(params, "default")
+    jstep = jax.jit(jax_make_train_step(jmodel, jsched, tx, ema_decay=DECAY,
+                                        log_grad_norm=True, lr=LR))
+    model = _port_model(params, 0.0, remat=True)
+    model.remat_policy = policy
+    state = create_train_state(model, lr=None if fused else LR, fused_optimizer=fused,
+                               nu_dtype=torch.bfloat16 if nu == "bf16" else None,
+                               factored_nu=nu == "factored")
+    step = make_train_step(model, create_diffusion("", device="cpu").schedule, ema_decay=DECAY,
+                           log_grad_norm=True, lr=LR)
+    x, y = _batch()
+    batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y.astype(np.int64))}
+    rng = jax.random.PRNGKey(0)
+    for s in range(STEPS):
+        jstate, jm = jstep(jstate, {"x": jnp.asarray(x), "y": jnp.asarray(y)}, rng)
+        m = step(state, batch, draws=_jax_draws(rng, s, 1))
+        for k in ("loss", "mse", "vb", "grad_norm"):
+            rtol = 2 ** -8 if k == "grad_norm" and fused else LOSS_RTOL
+            assert abs(m[k].item() - float(jm[k])) <= rtol * abs(float(jm[k])) + 1e-7, k
+
+    bound = 2 * LR * STEPS
+    want_p = _sd(jstate.params)
+    for n, p in model.named_parameters():
+        got, want = p.detach().float().numpy(), want_p[n]
+        ulp = 0 if not fused else 2.0 ** (np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
+        assert (np.abs(got - want) <= np.maximum(bound, ulp)).all(), n
+    want_e = _sd(jstate.ema)
+    for n, e in state.ema.items():
+        assert np.abs(e.numpy() - want_e[n]).max() <= (1 - DECAY) * bound + 1e-6, n
+    if nu == "bf16":
+        names = [n for n, _ in model.named_parameters()]
+        want_nu = _sd(jstate.opt_state.nu)
+        for n, v in zip(names, state.opt.nu):
+            assert v.dtype == torch.bfloat16
+            w = want_nu[n]
+            assert np.abs(v.float().numpy() - w).max() <= 2 * 2 ** -7 * np.abs(w).max(), n
+    elif nu == "factored":
+        is_fnu = lambda n: isinstance(n, JaxFactoredNu)
+        jnu = {"/".join(str(getattr(k, "key", k)) for k in path[1:]): leaf for path, leaf in
+               jax.tree_util.tree_flatten_with_path(jstate.opt_state.nu, is_leaf=is_fnu)[0]}
+        factored = {v.leaf.path: v for v in state.opt.nu if isinstance(v, FactoredNu)}
+        assert factored and set(factored) == {k for k, v in jnu.items() if is_fnu(v)}
+        for path, v in factored.items():
+            for got, want in ((v.row, jnu[path].row), (v.col, jnu[path].col)):
+                want = np.asarray(want)
+                assert got.shape == want.shape
+                assert np.abs(got.numpy() - want).max() <= 2 * 2 ** -7 * np.abs(want).max(), path
+
+
 @pytest.mark.parametrize("kw", [{"lr": LR}, {"weight_decay": 0.0}], ids=["lr", "weight_decay"])
 def test_fused_route_takes_lr_and_weight_decay_from_the_step_only(kw):
     # as in JAX (train_lib.py:88-92): the fused update reads them from
@@ -295,7 +376,8 @@ def test_cli_trains_on_cpu_in_process_and_writes_a_loadable_checkpoint(tmp_path)
     log = (exp / "log.txt").read_text()
     assert log.count("Train Loss") == 2 and "Train Steps/Sec" in log
     ckpt = torch.load(exp / "checkpoints" / "0000002.pt", weights_only=False)
-    assert set(ckpt) == {"model", "ema", "opt", "args"}
+    # the reference layout, and what a resume needs (tests/test_torch_resume.py)
+    assert set(ckpt) == {"model", "ema", "opt", "args", "step", "sampler", "rng"}
     model = DiT(input_size=32, hidden_size=384, depth=12, num_heads=6, device="cpu")
     model.load_state_dict(ckpt["ema"], strict=True)
     model.load_state_dict(ckpt["model"], strict=True)
@@ -305,20 +387,79 @@ def test_cli_trains_on_cpu_in_process_and_writes_a_loadable_checkpoint(tmp_path)
     assert all(torch.equal(exported[k], ckpt["ema"][k]) for k in exported)
 
 
+UNPORTED = ("--tp", "--fsdp", "--ep", "--native-loader")
+
+
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--tp", "2"], ["--fsdp"], ["--ep", "2"], ["--native-loader"],
-    # flow and loss-second-moment are ported; these two cases now refuse
-    # what stays unported alongside them
-    ["--objective", "flow", "--resume"],
-    ["--schedule-sampler", "loss-second-moment", "--remat-policy", "attn_mlp"],
-    ["--remat-policy", "attn"], ["--nu-dtype", "bf16"], ["--factored-nu"],
+    # --resume, the remat policies, bf16 and factored nu, flow and the
+    # loss-second-moment sampler are ported (their runs:
+    # test_cli_runs_the_remat_policies_and_nu_kinds_on_cpu,
+    # tests/test_torch_resume.py); those cases now pair them with a flag that
+    # stays unported, which alone must be named
+    ["--resume", "--tp", "2"], ["--tp", "2"], ["--fsdp"], ["--ep", "2"], ["--native-loader"],
+    ["--objective", "flow", "--resume", "--fsdp"],
+    ["--schedule-sampler", "loss-second-moment", "--remat-policy", "attn_mlp", "--ep", "2"],
+    ["--remat-policy", "attn", "--native-loader"],
+    ["--fused-optimizer", "--nu-dtype", "bf16", "--tp", "2"],
+    ["--fused-optimizer", "--factored-nu", "--fsdp"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     args = cli.parse_args(["--device", "cpu", "--synthetic-data", "--model", "DiT-S/2",
                            "--results-dir", str(tmp_path), *flags])
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not ported yet") as e:
+        cli.main(args)
+    message = str(e.value)
+    assert all(f in message for f in flags if f in UNPORTED)
+    assert not any(f in message for f in flags if f.startswith("--") and f not in UNPORTED)
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flags", [["--nu-dtype", "bf16"], ["--factored-nu"]])
+def test_cli_refuses_nu_options_without_the_fused_optimizer(flags, tmp_path):
+    # JAX's create_train_state raises for them (train_lib.py:101-104)
+    args = cli.parse_args(["--device", "cpu", "--synthetic-data", "--model", "DiT-S/2",
+                           "--results-dir", str(tmp_path), *flags])
+    with pytest.raises(SystemExit, match="fused-optimizer features"):
         cli.main(args)
     assert not list(tmp_path.iterdir())
+    with pytest.raises(ValueError, match="pass fused_optimizer=True"):
+        create_train_state(DiT(**CFG, device="cpu"), nu_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--remat-policy", "attn"], ["--remat-policy", "attn_mlp"],
+    ["--fused-optimizer", "--nu-dtype", "bf16"], ["--fused-optimizer", "--factored-nu"],
+    ["--fused-optimizer", "--factored-nu", "--nu-dtype", "bf16", "--remat-policy", "attn"],
+], ids=lambda f: "_".join(f).replace("-", ""))
+def test_cli_runs_the_remat_policies_and_nu_kinds_on_cpu(flags, tmp_path, monkeypatch):
+    # DiT-S/8 cut to 2 blocks: a 0.1 GB checkpoint file, not 0.5 (removed below)
+    monkeypatch.setitem(cli.DiT_models, "DiT-S/8",
+                        functools.partial(cli.DiT_models["DiT-S/8"], depth=2))
+    args = cli.parse_args(["--device", "cpu", "--synthetic-data", "--model", "DiT-S/8",
+                           "--max-steps", "2", "--global-batch-size", "4", "--log-every", "1",
+                           "--results-dir", str(tmp_path / "results"), *flags])
+    try:
+        _check_cli_run(args, flags, tmp_path)
+    finally:
+        shutil.rmtree(tmp_path / "results", ignore_errors=True)
+
+
+def _check_cli_run(args, flags, tmp_path):
+    cli.main(args)
+    (exp,) = (tmp_path / "results").iterdir()
+    assert (exp / "log.txt").read_text().count("Train Loss") == 2
+    ckpt = torch.load(exp / "checkpoints" / "0000002.pt", weights_only=False)
+    assert ckpt["args"].remat_policy == args.remat_policy
+    route = ckpt["opt"]["route"]
+    if "--factored-nu" in flags:
+        assert route == "fused/factored" and ckpt["opt"]["factored"]
+        dense = [v for v in ckpt["opt"]["nu"] if v is not None]
+        assert all(v.dtype == (torch.bfloat16 if "bf16" in flags else torch.float32)
+                   for v in dense)
+    elif "--nu-dtype" in flags:
+        assert route == "fused/bfloat16"
+    else:
+        assert route == "adamw"
 
 
 def test_cli_refuses_to_run_without_cuda_unless_asked(tmp_path):

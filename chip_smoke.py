@@ -60,6 +60,20 @@ nonzero:
                   launches exactly depth x refresh steps; the DPM chain also through
                   `sample_latents` and the fp32 decode; and first each new loop on a
                   small fp32 model, card against CPU.
+9b. tome:         token merging: kernel 1 against its plain version at the ragged S
+                  ToMe makes at 256² (180 at ratio 0.3, 128 at 0.5), fp32 and bf16; small
+                  fp32 ToMe models card vs CPU (1e-4 x max); then DiT-XL/2 at cell 1's
+                  shape with --tome-ratio 0.3, 0.5, 0.5 --tome-mlp and 0.5
+                  --cache-interval 2 through the sampler CLI's functions (sync debug
+                  mode "error", kernel-1 launches exactly depth x refresh steps), each
+                  profiled, with max |delta| of the final latents against phase
+                  `sample`'s exact chain (same weights and noise): recorded, not bounded.
+9c. quant:        W8A8: the int8 GEMM at DiT-XL/2's four projection shapes equal to an
+                  fp32 matmul of its int8 operands (every partial sum below 2^24) and
+                  timed against the bf16 F.linear; small fp32 quantised models card vs
+                  CPU (1e-2 x max: a one-ulp difference before a quantiser may move an
+                  int8 code by one step); then DiT-XL/2 with --quantize w8a8, alone and
+                  with --cache-interval 2, as in 9b, with the drift against the bf16 chain.
 10. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
                   VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
                   forward kernel launches exactly depth x steps x batches times.
@@ -78,7 +92,21 @@ nonzero:
                   factored nu, these seven under torch.cuda.set_sync_debug_mode("error")
                   (no host sync in a step); each with the optimizer's device time and
                   the peak of allocated memory; first a small model card vs CPU under
-                  each remat policy and nu kind.
+                  each remat policy and nu kind; last --native-loader on the feature
+                  folder phase `extract` wrote: every batch equal to the Python loader's,
+                  then 2 steps after 1 on it.
+12a. moe:         the DiT-MoE family: a small fp32 MoE model card vs CPU (a chain, 1e-4
+                  x max; two train steps: loss 1e-5 relative, gradients 1e-4 of max, the
+                  same kept (choice, token) masks); kernel 3 against `_update_math` over
+                  the MoE tree at full width and depth 4, both nu dtypes, every element
+                  equal; DiT-MoE-XL/2-8E2A (28 blocks, 8 experts, top-2, 2.76 G
+                  parameters) sampling cell 1's chain through the sampler CLI's functions
+                  (launches exact, profiled, the capacity's dropped share) and
+                  `sample_latents`; then the trainer CLI's functions at batch 32, bf16,
+                  remat "nothing", 3 steps after 2 under sync debug mode "error": with
+                  --fused-optimizer at full depth (one fused-update launch per parameter
+                  leaf per step) and the default AdamW route at depth 14 (24 bytes a
+                  parameter: 62 GiB at full depth before AdamW's temporaries).
 12b. resume:      DiT-XL/2's width at depth 4, every optimizer route and nu kind with
                   warmed-up loss-second-moment t: 2 steps, save, 2 more, against a
                   state from another seed that restores the file and runs the same 2
@@ -107,6 +135,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -127,6 +156,7 @@ from fast_dit_torch.ops.flash_attention import (  # noqa: E402
     _attention_qkv_bwd_plain, _attention_qkv_plain, _launch_bwd, _launch_fwd,
     flash_attention_qkv_flat)
 from fast_dit_torch.ops import fused_update as fu  # noqa: E402
+from fast_dit_torch.ops.quant import int8_matmul, int8_mm, quantize_cols, quantize_rows  # noqa: E402
 from fast_dit_torch.ops.ring_attention import (  # noqa: E402
     _BWD_ARGS, _FWD_ARGS, _hop_backward_plain, _hop_forward_plain, _launch_hop_bwd,
     _launch_hop_fwd)
@@ -212,6 +242,22 @@ SAMPLER_CHAINS = [
     ("flow_heun", ["--sampler", "heun", "--num-sampling-steps", "10"], 20),  # 2 per step
 ]
 FLOW_TRAIN_STEPS = LSM_TRAIN_STEPS = 3
+# token merging at cell 1's shape: kernel 1 at S = 256 - r (r = 76 at ratio
+# 0.3, 128 at 0.5), and the ToMe chains (name, the sampler CLI's flags)
+TOME_SHAPES = [(16, 180, 16, 72), (16, 128, 16, 72)]
+TOME_CHAINS = [("tome_0.3", ["--tome-ratio", "0.3"]), ("tome_0.5", ["--tome-ratio", "0.5"]),
+               ("tome_0.5_mlp", ["--tome-ratio", "0.5", "--tome-mlp"]),
+               ("tome_0.5_cache2", ["--tome-ratio", "0.5", "--cache-interval", "2"])]
+QUANT_CHAINS = [("quant_w8a8", ["--quantize", "w8a8"]),
+                ("quant_w8a8_cache2", ["--quantize", "w8a8", "--cache-interval", "2"])]
+# the four W8A8 projections of DiT-XL/2 at cell 1's batch: (rows, in, out)
+QUANT_GEMMS = {"qkv": (4096, 1152, 3456), "proj": (4096, 1152, 1152),
+               "fc1": (4096, 1152, 4608), "fc2": (4096, 4608, 1152)}
+# the MoE family at full width: 28 blocks, 8 experts, top-2 (2.76 G parameters);
+# the default AdamW route at depth 14 (24 bytes a parameter: 62 GiB at 28),
+# kernel 3's check over the tree at depth 4 (depth repeats the same leaves)
+MOE_MODEL = "DiT-MoE-XL/2-8E2A"
+MOE_TRAIN_STEPS, MOE_ADAMW_DEPTH, MOE_FU_DEPTH = 3, 14, 4
 # (name, the trainer CLI's flags): the remat policies (and none, for peak
 # memory) and the fused route's bf16 and factored nu, 3 timed steps after 2,
 # each under sync debug mode "error"
@@ -384,6 +430,33 @@ def sdpa_backward(q, k, v, do, scale):
         scale=scale), "aten._scaled_dot_product_efficient_attention_backward")
 
 
+def _kernel_row(phase, B, S, H, hd, dtype, g, large=False):
+    """Kernel 1 against its plain version at one shape and dtype, with its
+    time, the plain version's, SDPA's (timed only) and the bound."""
+    D = H * hd
+    qkv, max_logit = attention_qkv(B, S, H, hd, dtype, g, large)
+    scale = hd ** -0.5
+    out = flash_attention_qkv_flat(qkv, H)
+    torch.cuda.synchronize()
+    ref = _attention_qkv_plain(qkv, H, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= TOL[dtype]):
+        raise AssertionError(f"attention kernel vs twin at {(B, S, H, hd)} {dtype} "
+                             f"large={large}: max abs err {err} > {TOL[dtype]}")
+    q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
+               for i in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, bound_by = attention_bound_ms(B, S, H, hd, dtype)
+    row = {"phase": phase, "name": "attention_fwd", "shape": [B, S, H, hd],
+           "dtype": str(dtype).replace("torch.", ""), "large_logits": large,
+           "max_logit": max_logit, "max_abs_err": err, "tol": TOL[dtype],
+           "kernel_ms": cuda_ms(lambda: flash_attention_qkv_flat(qkv, H)),
+           "plain_ms": cuda_ms(lambda: _attention_qkv_plain(qkv, H, scale)),
+           "library_ms": cuda_ms(lambda: sdpa(q, k, v, scale=scale)),
+           "bound_ms": bound, "bound_us": bound * 1e3, "bound_by": bound_by}
+    return _ratios(row)
+
+
 def phase_kernel():
     """Kernel vs twin at every shape and dtype, and at large logits; returns
     the main-shape bf16 row."""
@@ -391,32 +464,11 @@ def phase_kernel():
     main = None
     for (B, S, H, hd), large in ([(shape, False) for shape in KERNEL_SHAPES]
                                  + [(MAIN_SHAPE, True)]):
-        D = H * hd
         for dtype in (torch.float32, torch.bfloat16):
-            qkv, max_logit = attention_qkv(B, S, H, hd, dtype, g, large)
-            scale = hd ** -0.5
-            out = flash_attention_qkv_flat(qkv, H)
-            torch.cuda.synchronize()
-            ref = _attention_qkv_plain(qkv, H, scale)
-            err = (out.float() - ref.float()).abs().max().item()
-            if not (torch.isfinite(out).all() and err <= TOL[dtype]):
-                raise AssertionError(f"attention kernel vs twin at {(B, S, H, hd)} {dtype} "
-                                     f"large={large}: max abs err {err} > {TOL[dtype]}")
-            q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
-                       for i in range(3))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            bound, bound_by = attention_bound_ms(B, S, H, hd, dtype)
-            row = {"phase": "kernel", "name": "attention_fwd", "shape": [B, S, H, hd],
-                   "dtype": str(dtype).replace("torch.", ""), "large_logits": large,
-                   "max_logit": max_logit, "max_abs_err": err, "tol": TOL[dtype],
-                   "kernel_ms": cuda_ms(lambda: flash_attention_qkv_flat(qkv, H)),
-                   "plain_ms": cuda_ms(lambda: _attention_qkv_plain(qkv, H, scale)),
-                   "library_ms": cuda_ms(lambda: sdpa(q, k, v, scale=scale)),
-                   "bound_ms": bound, "bound_us": bound * 1e3, "bound_by": bound_by}
-            emit(_ratios(row))
+            row = _kernel_row("kernel", B, S, H, hd, dtype, g, large)
+            emit(row)
             if (B, S, H, hd) == MAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
-            del qkv, out, ref
     return main
 
 
@@ -467,13 +519,16 @@ def phase_kernel_bwd():
     return main
 
 
-def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None):
-    """The fused kernel vs `_update_math` over DiT-XL/2's parameter tree
-    (bf16 params and mu, fp32 or bf16 nu, fp32 master and EMA); returns the
-    row. The fp32-nu run also times the library yardstick, which the bf16
-    run reuses (`library_ms`)."""
+def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None, model="DiT-XL/2",
+                       depth=None, library=True, phase="fused_update"):
+    """The fused kernel vs `_update_math` over the parameter tree of
+    `model` (DiT-XL/2's, or at `depth`) (bf16 params and mu, fp32 or bf16
+    nu, fp32 master and EMA); returns the row. The fp32-nu run also times
+    the library yardstick, which the bf16 run reuses (`library_ms`); with
+    `library` False none is timed."""
+    kw = {} if depth is None else {"depth": depth}
     with torch.device("meta"):
-        shapes = [p.shape for p in DiT_models["DiT-XL/2"](device="meta").parameters()]
+        shapes = [p.shape for p in DiT_models[model](device="meta", **kw).parameters()]
     g = torch.Generator(device="cuda").manual_seed(3)
     init = [(0.02 * torch.randn(s, generator=g, device="cuda")).to(torch.bfloat16)
             for s in shapes]
@@ -518,7 +573,7 @@ def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None):
     plain_ms = cuda_ms(lambda: fu._apply_plain(pstate, grads, pp, pema, hyper),
                        iters=5, warmup=1)
     del pp, pstate, pema
-    if library_ms is None:
+    if library_ms is None and library:
         # the library yardstick: torch's fused AdamW over fp32 copies of the tree
         masters = [w.clone() for w in kstate.master]
         for w, gr in zip(masters, grads):
@@ -526,13 +581,15 @@ def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None):
         opt = torch.optim.AdamW(masters, lr=LR, weight_decay=0.0, fused=True)
         library_ms = cuda_ms(opt.step, iters=5, warmup=1)
         del masters, opt
-    row = {"phase": "fused_update", "name": name, "leaves": len(shapes),
+    row = {"phase": phase, "name": name, "model": model, "depth": depth, "leaves": len(shapes),
+           "max_leaf_shape": list(max(shapes, key=math.prod)),
            "elements": n, "steps": steps, "param_dtype": "bfloat16", "mu_dtype": "bfloat16",
            "nu_dtype": _dtype_name(nu_dtype), "bytes_per_element": nbytes // n,
            "max_abs_err": errs, "tol": 0,
            "launches_per_step": len(shapes), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
-           "library": "torch.optim.AdamW(fused=True).step(), fp32: AdamW only, no EMA or cast",
+           "library": ("torch.optim.AdamW(fused=True).step(), fp32: AdamW only, no EMA or cast"
+                       if library_ms is not None else None),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     emit(row)
@@ -650,7 +707,7 @@ def phase_sample(steps, profile_table, vae_bin):
         row["profile"] = profile_device(lambda: cli.sample_latents(args, model, diffusion4),
                                         profile_table, "4 sampling steps")
     emit(row)
-    return launches, model
+    return launches, model, latents
 
 
 def profile_device(run, table_path, what):
@@ -801,7 +858,20 @@ def _sampler_chain(args, model, diffusion, evals, profile_table=None, refreshes=
             with torch.inference_mode():
                 cli.run_chain(args, diffusion, fn, z, g)
         row["profile"] = profile_device(run, profile_table, f"{args.sampler} chain, {steps} steps")
-    return row, launches
+    return row, launches, latents
+
+
+def _refresh_steps(args, diffusion):
+    """The refresh steps of a layer-cached chain (kernel 1 runs on those
+    only), as the host mask decides them; None for an uncached chain."""
+    if args.cache_interval <= 1:
+        return None
+    mask = cache_refresh_mask(diffusion.schedule, args.cache_interval, args.cache_schedule)
+    if args.cfg_interval is not None:
+        mask = mask | guidance_interval_cached_fns(None, None, diffusion.schedule,
+                                                   *args.cfg_interval)[2]
+    mask[0] = True
+    return int(mask.sum())
 
 
 def phase_samplers(profile_table, vae_bin, models):
@@ -826,18 +896,10 @@ def phase_samplers(profile_table, vae_bin, models):
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         diffusion = cli.build_diffusion(args, torch.device("cuda"))
-        refreshes = None
-        if args.cache_interval > 1:  # the host mask decides: count it here
-            mask = cache_refresh_mask(diffusion.schedule, args.cache_interval,
-                                      args.cache_schedule)
-            if args.cfg_interval is not None:
-                mask = mask | guidance_interval_cached_fns(None, None, diffusion.schedule,
-                                                           *args.cfg_interval)[2]
-            mask[0] = True
-            refreshes = int(mask.sum())
-        row, launches[name] = _sampler_chain(args, model, diffusion, evals,
-                                             profile_table and f"{root}_{name}{ext}",
-                                             refreshes=refreshes)
+        refreshes = _refresh_steps(args, diffusion)
+        row, launches[name], _ = _sampler_chain(args, model, diffusion, evals,
+                                                profile_table and f"{root}_{name}{ext}",
+                                                refreshes=refreshes)
         row["model_build_s"] = build_s
         if args.cfg_interval is not None:
             guided = int(guided_steps_korder(diffusion.schedule, *args.cfg_interval).sum())
@@ -966,7 +1028,7 @@ def _fwd_bwd_gib(model, diffusion, batch):
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
-def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
+def _train_run(flags, warmup, steps, profile_table=None, no_sync=False, base=TRAIN_ARGS):
     """The trainer CLI's own functions: build, one batch of synthetic
     latents, `warmup` steps, then `steps` timed steps with the launch counts
     set to 0 just before and read just after, and every parameter and EMA
@@ -974,7 +1036,7 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
     the peak of allocated memory. With `no_sync` the timed steps run under
     torch.cuda.set_sync_debug_mode("error"): a step that waits for the
     device raises."""
-    args = train_cli.parse_args(TRAIN_ARGS + flags)
+    args = train_cli.parse_args(base + flags)
     train_cli.check_args(args)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -993,9 +1055,10 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
     if no_sync:
         torch.cuda.set_sync_debug_mode("error")
     try:
-        losses = [train_step(state, batch)["loss"] for _ in range(steps)]
+        metrics = [train_step(state, batch) for _ in range(steps)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    losses, last = [m["loss"] for m in metrics], metrics[-1]
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
@@ -1022,7 +1085,8 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
         raise AssertionError(f"non-finite training loss: {losses}")
     optimizer_ms = _optimizer_ms(state, args.ema_decay)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    row = {"model": "DiT-XL/2", "image_size": 256, "batch": args.global_batch_size,
+    row = {"model": args.model, "depth": depth, "image_size": 256,
+           "batch": args.global_batch_size,
            "dtype": "bfloat16", "remat": None if args.no_remat else args.remat_policy,
            "flags": flags, "optimizer_ms": optimizer_ms,
            "fwd_bwd_gib": (_fwd_bwd_gib(model, diffusion, batch) if args.objective == "eps"
@@ -1032,7 +1096,10 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
            "s_per_step": loop_s / steps,
            "images_per_s": args.global_batch_size * steps / loop_s,
            "losses": losses, "launches": launches,
-           "sync_debug_mode": "error" if no_sync else None, "peak_mem_gib": peak_gib}
+           "sync_debug_mode": "error" if no_sync else None, "peak_mem_gib": peak_gib,
+           "native_loader": args.native_loader}
+    if model.moe_experts:  # the last timed step's MoE metrics
+        row["moe_metrics"] = {k: v.item() for k, v in last.items() if k.startswith("moe_")}
     if args.fused_optimizer:
         nus = {id(v): v for v in state.opt.nu}.values()
         row["nu"] = fu.nu_kind(state.opt)
@@ -1051,6 +1118,28 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False):
                                         profile_table, "2 training steps")
     del model, diffusion, state, train_step, batch
     torch.cuda.empty_cache()
+    return row, launches
+
+
+def _native_loader_run():
+    """--native-loader on the feature folder phase `extract` wrote (16
+    features, batch 8, 2 epochs): every batch equals the Python loader's;
+    then DiT-XL/2 trains 2 steps after 1 on its first batch."""
+    base = ["--model", "DiT-XL/2", "--feature-path", os.path.join(OUT_DIR, "features"),
+            "--global-batch-size", "8", "--global-seed", "0", "--epochs", "2"]
+
+    def read(flags):
+        return [[{k: v.cpu() for k, v in b.items()} for b in epoch] for epoch in
+                train_cli.device_batches(train_cli.parse_args(base + flags),
+                                         torch.device("cuda"))]
+    got, want = read(["--native-loader"]), read([])
+    if not (len(got) == len(want) == 2 and all(
+            len(g) == len(w) == EXTRACT_IMAGES // 8
+            and all(torch.equal(a[k], b[k]) for a, b in zip(g, w) for k in ("x", "y"))
+            for g, w in zip(got, want))):
+        raise AssertionError("the native loader's batches differ from the Python loader's")
+    row, launches = _train_run(["--native-loader"], warmup=1, steps=2, no_sync=True, base=base)
+    row["batches_equal_python_loader"] = sum(len(e) for e in got)
     return row, launches
 
 
@@ -1076,16 +1165,17 @@ def phase_train(profile_table):
     for name, flags in TRAIN_MORE:
         more[name], more_launches[f"train_{name}"] = _train_run(
             flags, warmup=2, steps=MORE_TRAIN_STEPS, no_sync=True)
+    native, native_launches = _native_loader_run()
     peak = {"main_nothing": (main["peak_mem_gib"], main["fwd_bwd_gib"]),
             **{k: (more[k]["peak_mem_gib"], more[k]["fwd_bwd_gib"])
                for k in ("no_remat", "remat_attn", "remat_attn_mlp")}}
     emit({"phase": "train", "small_check": small, "small_check_flow": small_flow,
           "small_check_more": small_more, "main": main, "fused_optimizer": fused,
-          "flow": flow, "loss_second_moment": lsm, **more,
+          "flow": flow, "loss_second_moment": lsm, **more, "native_loader": native,
           "peak_and_fwd_bwd_gib_by_remat": peak})
     return {"train": main_launches, "train_fused_optimizer": fused_launches,
             "train_flow": flow_launches, "train_loss_second_moment": lsm_launches,
-            **more_launches}
+            **more_launches, "train_native_loader": native_launches}
 
 
 def _state_tensors(state) -> dict:
@@ -1743,6 +1833,263 @@ def phase_vae(vae_bin, profile_table=None):
     return vae
 
 
+def _small_chain_check(model_name, model_kw, cached=False, rtol=1e-4):
+    """A small fp32 model of `model_name` (8² latents, depth 2) with the
+    options `model_kw`, DDPM 10 steps at CFG 4.0 (with `cached`, the layer
+    cache at interval 2), on the card and on the CPU with the same weights
+    and noise: the final latents agree within `rtol` of max."""
+    g = torch.Generator().manual_seed(15)
+    noise = torch.randn(2, 4, 8, 8, generator=g)
+    noise = torch.cat([noise, noise])
+    step_noise = torch.randn(10, 4, 4, 8, 8, generator=g)
+    y = [1, 7, 1000, 1000]
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = DiT_models[model_name](input_size=8, depth=2, device=device, seed=0, **model_kw)
+        cli.perturb_(model)
+        d = create_diffusion("10", device=device)
+        yy = torch.tensor(y, device=device)
+        cfg = lambda x, t, **ck: model.forward_with_cfg(x, t, yy, 4.0, **ck)
+        kw = dict(noise=noise.to(device), step_noise=step_noise.to(device), clip_denoised=False)
+        with torch.inference_mode():
+            if cached:
+                out = d.p_sample_loop_cached(lambda x, t: cfg(x, t, want_cache=True),
+                                             lambda x, t, c: cfg(x, t, cache=c), noise.shape,
+                                             interval=2, **kw)
+            else:
+                out = d.p_sample_loop(cfg, noise.shape, **kw)
+        outs.append(out.cpu())
+    err, peak = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
+    if not (torch.isfinite(outs[0]).all() and err <= rtol * peak):
+        raise AssertionError(f"small {model_name} {model_kw} cached={cached} chain card vs "
+                             f"CPU: {err} > {rtol} x {peak}")
+    return {"max_abs_err": err, "max_abs_out": peak, "tol": rtol * peak}
+
+
+PROFILE_STEPS = 4  # steps of the profiled run of a ToMe, W8A8 or MoE chain
+
+
+def _profile_chain(args, model, table_path):
+    """Device busy ms and idle share of `PROFILE_STEPS` steps of the chain of
+    `args` (the profiler's cost grows with the run; 4 steps hold a full and
+    a cached step of an interval-2 cache)."""
+    short = argparse.Namespace(**{**vars(args), "num_sampling_steps": PROFILE_STEPS})
+    diffusion = cli.build_diffusion(short, torch.device("cuda"))
+    z, y, g = cli.sampling_inputs(short, model)
+    fn = cli.make_model_fn(short, model, diffusion, y)
+
+    def run():
+        with torch.inference_mode():
+            cli.run_chain(short, diffusion, fn, z, g)
+    return profile_device(run, table_path, f"{args.sampler} chain, {PROFILE_STEPS} steps")
+
+
+def _option_chains(chains, steps, exact, profile_root):
+    """Each (name, flags) chain of DiT-XL/2 at cell 1's shape (256², bf16,
+    CFG 4.0, 8 labels, DDPM `steps`) through the sampler CLI's functions,
+    model built by `build_model`, launches exact (depth x refresh steps),
+    profiled over `PROFILE_STEPS` steps (busy ms, idle share), and its
+    final latents against `exact`, the chain of phase `sample` with the
+    same weights and noise."""
+    rows, launches = {}, {}
+    for name, flags in chains:
+        args = cli.parse_args(SAMPLER_ARGS + ["--num-sampling-steps", str(steps)] + flags)
+        cli.check_args(args)
+        t0 = time.perf_counter()
+        model = cli.build_model(args, torch.device("cuda"), args.seed)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        diffusion = cli.build_diffusion(args, torch.device("cuda"))
+        row, launches[name], latents = _sampler_chain(
+            args, model, diffusion, steps, refreshes=_refresh_steps(args, diffusion))
+        row.update(profile=_profile_chain(args, model, f"{profile_root}_{name}.txt"),
+                   model_build_s=build_s, tome_r=model.tome_r, quant=model.quant,
+                   tome_mlp=model.tome_mlp,
+                   max_abs_diff_vs_exact=(latents - exact).abs().max().item(),
+                   exact_max_abs=exact.abs().max().item())
+        rows[name] = row
+        del model, latents
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_tome(steps, exact, profile_root):
+    """Token merging: kernel 1 against its plain version at the ragged
+    lengths ToMe makes (S = 256 - r: 180 at ratio 0.3, 128 at 0.5), fp32
+    and bf16; small fp32 models card vs CPU; then the ToMe chains of
+    DiT-XL/2 (`TOME_CHAINS`). ToMe approximates: the drift against the
+    exact chain is recorded, not bounded. Returns {chain: launches}."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    kernel = [_kernel_row("tome", *shape, dtype, g) for shape in TOME_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)]
+    small = {f"ratio_{r}{'_mlp' * m}{'_cache2' * c}": _small_chain_check(
+        "DiT-S/2", {"tome_ratio": r, "tome_mlp": m}, cached=c)
+        for r, m, c in ((0.3, False, False), (0.5, False, False), (0.5, True, False),
+                        (0.5, False, True))}
+    rows, launches = _option_chains(TOME_CHAINS, steps, exact, profile_root)
+    emit({"phase": "tome", "kernel": kernel, "small_check": small, "model": "DiT-XL/2",
+          "chains": rows})
+    return launches
+
+
+def _int8_gemms():
+    """The int8 GEMM at the four projections of DiT-XL/2 at cell 1's batch
+    (16 x 256 rows): its int32 products equal an fp32 matmul of the int8
+    operands (exact: every partial sum stays below 2^24, checked), and its
+    device time against the bf16 `F.linear` of the same shape, and the whole
+    W8A8 product (row quantiser, GEMM, dequantisation)."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = {}
+    for name, (M, K, N) in QUANT_GEMMS.items():
+        x = torch.randn(M, K, generator=g, device="cuda")
+        w = 0.02 * torch.randn(N, K, generator=g, device="cuda")  # a Linear's weight
+        xq, _ = quantize_rows(x)
+        wq, ws = quantize_cols(w.t())
+        acc = int8_mm(xq, wq)
+        ref = xq.float() @ wq.float()
+        bound = (xq.float().abs() @ wq.float().abs()).max().item()
+        if not (bound < 2 ** 24 and torch.equal(acc.float(), ref)):
+            raise AssertionError(f"int8 GEMM {name} {(M, K, N)} differs from the fp32 matmul "
+                                 f"of its operands (largest |partial sum| {bound})")
+        xb, wb = x.bfloat16(), w.bfloat16()
+        rows[name] = {"shape": [M, K, N], "exact": True, "max_abs_sum": bound,
+                      "int8_gemm_ms": cuda_ms(lambda: int8_mm(xq, wq)),
+                      "bf16_linear_ms": cuda_ms(lambda: torch.nn.functional.linear(xb, wb)),
+                      "w8a8_matmul_ms": cuda_ms(lambda: int8_matmul(xb, w.t(), None,
+                                                                    wq=(wq, ws)))}
+        rows[name]["int8_over_bf16"] = rows[name]["int8_gemm_ms"] / rows[name]["bf16_linear_ms"]
+        del x, w, xq, wq, acc, ref, xb, wb
+    return rows
+
+
+def phase_quant(steps, exact, profile_root):
+    """W8A8: the int8 GEMM exact and timed (`_int8_gemms`); small fp32
+    quantised models card vs CPU; then the quantised chains of DiT-XL/2
+    (`QUANT_CHAINS`), with their drift against the bf16 chain. A quantised
+    card-vs-CPU chain may part by more than rounding: a one-ulp difference
+    before a quantiser can move an int8 code by one step (ROADMAP.md,
+    tolerances), so its limit is 1e-2 of max. Returns {chain: launches}."""
+    gemms = _int8_gemms()
+    small = {"w8a8": _small_chain_check("DiT-S/2", {"quant": "w8a8"}, rtol=1e-2),
+             "w8a8_cache2": _small_chain_check("DiT-S/2", {"quant": "w8a8"}, cached=True,
+                                               rtol=1e-2)}
+    rows, launches = _option_chains(QUANT_CHAINS, steps, exact, profile_root)
+    emit({"phase": "quant", "int8_gemm": gemms, "small_check": small, "model": "DiT-XL/2",
+          "chains": rows})
+    return launches
+
+
+def _moe_small_train_check(steps=2):
+    """A small fp32 MoE model (DiT-MoE-S/2-8E2A, depth 2, remat) trained 2
+    steps on the card and on the CPU from the same weights with the same
+    draws: the losses (with the aux terms) within 1e-5 relative, the last
+    gradients within 1e-4 of their largest, and every MoE layer's kept
+    (choice, token) mask the same in every forward, recomputes included."""
+    g = torch.Generator().manual_seed(17)
+    x, y = torch.randn(4, 4, 8, 8, generator=g), torch.tensor([1, 7, 3, 999])
+    draws = [{"t": torch.randint(0, 1000, (4,), generator=g),
+              "noise": torch.randn(4, 4, 8, 8, generator=g),
+              "force_drop_ids": torch.tensor([0, 1, 0, 0])} for _ in range(steps)]
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = DiT_models["DiT-MoE-S/2-8E2A"](input_size=8, depth=2, remat=True, device=device,
+                                               seed=0)
+        cli.perturb_(model)
+        masks = []
+
+        def keep(m, inp, out):
+            with torch.no_grad():
+                masks.append(m.route(inp[0]).keep.cpu())
+        hooks = [b.mlp.register_forward_hook(keep) for b in model.blocks]
+        state = create_train_state(model, lr=LR)
+        step = make_train_step(model, create_diffusion("", device=device).schedule, lr=LR)
+        batch = {"x": x.to(device), "y": y.to(device)}
+        metrics = [step(state, batch, draws=[{k: v.to(device) for k, v in d.items()}])
+                   for d in draws]
+        for h in hooks:
+            h.remove()
+        res[device] = {"loss": [m["loss"].item() for m in metrics],
+                       "moe": {k: v.item() for k, v in metrics[-1].items() if "moe" in k},
+                       "grad": torch.cat([p.grad.flatten() for p in model.parameters()]).cpu(),
+                       "router_grad": max(b.mlp.router.weight.grad.abs().max().item()
+                                          for b in model.blocks), "masks": masks}
+    card, cpu = res["cuda"], res["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card["loss"], cpu["loss"]))
+    grad_err = (card["grad"] - cpu["grad"]).abs().max().item()
+    grad_tol = 1e-4 * cpu["grad"].abs().max().item()
+    same_masks = (len(card["masks"]) == len(cpu["masks"]) > 0
+                  and all(torch.equal(a, b) for a, b in zip(card["masks"], cpu["masks"])))
+    if not (loss_err <= 1e-5 and grad_err <= grad_tol and same_masks
+            and card["router_grad"] > 0):
+        raise AssertionError(f"small MoE training card vs CPU: loss rel err {loss_err}, grad "
+                             f"err {grad_err} (tol {grad_tol}), masks equal {same_masks}, "
+                             f"router grad {card['router_grad']}")
+    return {"loss_rel_err": loss_err, "loss_tol": 1e-5, "grad_max_abs_err": grad_err,
+            "grad_tol": grad_tol, "masks_compared": len(card["masks"]),
+            "kept_share": torch.cat(card["masks"]).float().mean().item(),
+            "moe_metrics": card["moe"], "losses": card["loss"]}
+
+
+def phase_moe(steps, profile_root):
+    """The DiT-MoE family: small models card vs CPU (a chain, two train
+    steps); kernel 3 against `_update_math` over the MoE tree at full width,
+    depth MOE_FU_DEPTH, both nu dtypes; DiT-MoE-XL/2-8E2A at full width and
+    depth sampling cell 1's chain through the sampler CLI's functions, with
+    the share of (token, choice) slots its capacity dropped; then the
+    trainer CLI's functions with --fused-optimizer (full depth) and with the
+    default AdamW route (depth cut to MOE_ADAMW_DEPTH), each 3 steps after 2
+    under sync debug mode "error". Returns {path: launches}."""
+    small_chain = _small_chain_check("DiT-MoE-S/2-8E2A", {})
+    small_train = _moe_small_train_check()
+    fu_rows = {_dtype_name(nu): phase_fused_update(nu_dtype=nu, model=MOE_MODEL,
+                                                   depth=MOE_FU_DEPTH, library=False,
+                                                   phase="moe_fused_update")
+               for nu in (torch.float32, torch.bfloat16)}
+    launches = {}
+    args = cli.parse_args(["--model", MOE_MODEL, "--ckpt", "random", "--bf16", "--cfg-scale",
+                           "4.0", "--num-sampling-steps", str(steps)])
+    cli.check_args(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = cli.build_model(args, torch.device("cuda"), args.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    diffusion = cli.build_diffusion(args, torch.device("cuda"))
+    dropped = []
+    hooks = [b.mlp.register_forward_hook(lambda m, i, out: dropped.append(out[1][2]))
+             for b in model.blocks]
+    try:
+        row, launches["moe_sample"], latents = _sampler_chain(args, model, diffusion, steps)
+        dropped_frac = torch.stack(dropped).mean().item()
+    finally:
+        for h in hooks:
+            h.remove()
+    row["profile"] = _profile_chain(args, model, f"{profile_root}_moe.txt")
+    again = cli.sample_latents(args, model, diffusion)  # the CLI's own function, seeded
+    if not torch.equal(again, latents):
+        raise AssertionError("sample_latents differs from the same chain run by its parts")
+    row.update(model=MOE_MODEL, params=sum(p.numel() for p in model.parameters()),
+               model_build_s=build_s, dropped_frac=dropped_frac,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, diffusion, latents, again
+    torch.cuda.empty_cache()
+    base = ["--synthetic-data", "--global-batch-size", "32", "--global-seed", "0"]
+    fused, launches["moe_train_fused"] = _train_run(
+        ["--fused-optimizer"], warmup=2, steps=MOE_TRAIN_STEPS, no_sync=True,
+        base=["--model", MOE_MODEL] + base)
+    cut = f"{MOE_MODEL}-depth{MOE_ADAMW_DEPTH}"
+    DiT_models[cut] = functools.partial(DiT_models[MOE_MODEL], depth=MOE_ADAMW_DEPTH)
+    try:
+        adamw, launches["moe_train_adamw"] = _train_run(
+            [], warmup=2, steps=MOE_TRAIN_STEPS, no_sync=True, base=["--model", cut] + base)
+    finally:
+        del DiT_models[cut]
+    emit({"phase": "moe", "small_check_chain": small_chain, "small_check_train": small_train,
+          "fused_update": fu_rows, "sample": row, "train_fused_optimizer": fused,
+          "train_adamw": adamw})
+    return launches
+
+
 def phase_sample_ddp(vae_bin):
     """The FID harness's own `main` at full width: DiT-XL/2 256², the random
     VAE, 16 images in 2 batches of 8, 10 DDPM steps, CFG 1.5, `--tf32` at
@@ -1843,15 +2190,22 @@ def main():
         root, ext = os.path.splitext(a.profile)
         vae_table = f"{root}_vae{ext}"
     vae = phase_vae(vae_bin, vae_table)
-    sample_launches, model = phase_sample(a.steps, a.profile, vae_bin)
+    sample_launches, model, exact_latents = phase_sample(a.steps, a.profile, vae_bin)
     models = [model]
     del model  # phase_samplers takes it out of `models`
     sampler_launches = phase_samplers(a.profile, vae_bin, models)
+    # the new chains' profiler tables: beside --profile's, else under OUT_DIR
+    option_root = os.path.splitext(a.profile)[0] if a.profile else os.path.join(OUT_DIR,
+                                                                                "profile")
+    tome_launches = phase_tome(a.steps, exact_latents, option_root)
+    quant_launches = phase_quant(a.steps, exact_latents, option_root)
+    del exact_latents
     ddp_launches = phase_sample_ddp(vae_bin)
     phase_extract(vae)
     del vae
     torch.cuda.empty_cache()
     train_launches = phase_train(a.profile)
+    moe_launches = phase_moe(a.steps, option_root)
     phase_resume()
     ring_fwd = phase_ring_kernel()
     ring_bwd = phase_ring_kernel_bwd()
@@ -1860,12 +2214,11 @@ def main():
         root, ext = os.path.splitext(a.profile)
         seq_table = f"{root}_seq{ext}"
     seq_sample_launches, seq_grad_launches = phase_seq_parallel(SEQ_SAMPLE_STEPS, seq_table)
-    by_path = {k: {"sample": sample_launches.get(k, 0),
-                   **{f"samplers_{c}": n.get(k, 0) for c, n in sampler_launches.items()},
-                   "sample_ddp": ddp_launches.get(k, 0),
-                   **{path: n.get(k, 0) for path, n in train_launches.items()},
-                   "seq_sample": seq_sample_launches[k], "seq_grad": seq_grad_launches[k]}
-               for k in _build.launch_counts}
+    paths = {"sample": sample_launches,
+             **{f"samplers_{c}": n for c, n in sampler_launches.items()},
+             **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
+             **moe_launches, "seq_sample": seq_sample_launches, "seq_grad": seq_grad_launches}
+    by_path = {k: {path: n.get(k, 0) for path, n in paths.items()} for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):
             raise AssertionError(f"kernel {name} was launched no time on the main paths")

@@ -24,7 +24,10 @@ Slice 7 completes the diffusion library but the FORA-cached loops:
 DPM-Solver++ and UniPC, Karras spacing, the guidance interval, the reverse
 DDIM loop, the bits-per-dim bound, flow matching (`diffusion/flow.py`) and
 the loss-aware timestep sampler (`diffusion/timestep_samplers.py`), wired
-into both sampler CLIs and the trainer.
+into both sampler CLIs and the trainer. Slice 10 adds JAX's last model
+options: the DiT-MoE family with its routing aux losses (`models/moe.py`),
+token merging (`ops/tome.py`), W8A8 int8 sampling (`ops/quant.py`), and the
+binding to the C++ feature loader (`data/native_loader.py`).
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,12 @@
   `fast_dit_tpu` stores it: stacked (depth, ...) block params, (in, out)
   Dense kernels, (D, 3, H, hd) qkv kernel) into the port's state dict, with
   the reference torch names. The maps are the port's own copy of the
-  inverse maps at `torch_import.py:54-121` and `:166-210`.
+  inverse maps at `torch_import.py:54-121` and `:166-210`. A MoE tree has
+  no reference torch format (JAX's exporter refuses it, `:173-177`), so the
+  port names its routed MLP itself: `blocks.{i}.mlp.router.weight` (E, D),
+  the flax (D, E) router kernel transposed, and `blocks.{i}.mlp.wi` (E, D,
+  H), `.bi` (E, H), `.wo` (E, H, D), `.bo` (E, D), JAX's per-block arrays
+  as they are.
 - `jax_leaves` lists the flax leaves of a port DiT: which of its parameters
   each stacks and how one of them looks in flax's layout, so that a state
   kept per flax leaf (the factored second moment of `ops/fused_update.py`)
@@ -64,6 +69,23 @@ _BLOCK_MAP = {
     "mlp.fc2.bias": ("mlp/fc2/bias", _id),
 }
 
+# the routed MLP of a MoE block, in place of the mlp.fc* entries
+_MOE_BLOCK_MAP = {
+    "mlp.router.weight": ("mlp/router/kernel", _t),
+    "mlp.wi": ("mlp/wi", _id),
+    "mlp.bi": ("mlp/bi", _id),
+    "mlp.wo": ("mlp/wo", _id),
+    "mlp.bo": ("mlp/bo", _id),
+}
+
+
+def _block_map(moe: bool):
+    if not moe:
+        return _BLOCK_MAP
+    dense = {k: v for k, v in _BLOCK_MAP.items() if not k.startswith("mlp.")}
+    return {**dense, **_MOE_BLOCK_MAP}
+
+
 # top-level torch name -> (flax path, export)
 _TOP_MAP = {
     "x_embedder.proj.bias": ("x_embedder/proj/bias", _id),
@@ -98,7 +120,7 @@ def flax_params_to_state_dict(params: dict, patch_size: int, in_channels: int = 
         arrays[name] = export(_get(p, path))
     block = p["blocks"]["block"]
     depth = _get(block, "attn/qkv/kernel").shape[0]
-    for suffix, (path, export) in _BLOCK_MAP.items():
+    for suffix, (path, export) in _block_map("router" in block["mlp"]).items():
         stacked = _get(block, path)
         for i in range(depth):
             arrays[f"blocks.{i}.{suffix}"] = export(stacked[i])
@@ -137,7 +159,7 @@ def _layouts(heads: int):
               lambda a: a.reshape(-1, a.shape[-1]).T)
     patch = (lambda a: a.reshape(a.shape[0], -1).T, None)  # from_jax needs the shape
     table = {}
-    for suffix, (_, export) in {**_BLOCK_MAP, **_TOP_MAP}.items():
+    for suffix, (_, export) in {**_BLOCK_MAP, **_MOE_BLOCK_MAP, **_TOP_MAP}.items():
         table[suffix] = {_t: t, _id: same, _qkv_w: qkv_w, _qkv_b: qkv_b,
                          _proj_w: proj_w}[export]
     table["x_embedder.proj.weight"] = patch
@@ -146,7 +168,8 @@ def _layouts(heads: int):
 
 def jax_leaves(model) -> List[JaxLeaf]:
     """The flax leaves of `model` (a port DiT) in flax's order of paths,
-    each with the port's parameters it holds."""
+    each with the port's parameters it holds. A MoE block's expert leaves
+    keep JAX's stacked shapes, (depth, E, D, H) for `wi`."""
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
     index = {n: i for i, n in enumerate(names)}
@@ -161,7 +184,7 @@ def jax_leaves(model) -> List[JaxLeaf]:
     leaves.append(JaxLeaf("x_embedder/proj/kernel", (i,), (math.prod(shape4[1:]), shape4[0]),
                           layouts["x_embedder.proj.weight"][0],
                           lambda a, s=shape4: a.T.reshape(s)))
-    for suffix, (path, _) in _BLOCK_MAP.items():
+    for suffix, (path, _) in _block_map(getattr(model, "moe_experts", 0) > 0).items():
         members = tuple(index[f"blocks.{b}.{suffix}"] for b in range(len(model.blocks)))
         to_jax, from_jax = layouts[suffix]
         one = tuple(to_jax(params[members[0]]).shape)

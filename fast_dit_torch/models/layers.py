@@ -1,5 +1,5 @@
 """DiT building blocks as `nn.Module`s (counterpart of
-`fast_dit_tpu/models/layers.py`, dense path only: no quant, tome or MoE).
+`fast_dit_tpu/models/layers.py`).
 
 Module and parameter names are the reference torch names
 (`fast_dit_tpu/ckpt/torch_import.py:97-121`), so a reference `.pt` state
@@ -18,6 +18,16 @@ runs the same blocks on token shards: `Attention`, `DiTBlock.forward` and `full_
 tokens are sharded around, and with one, attention takes the "ring" backend
 (q, k and v read in place from the packed qkv, q at column 0, k at D, v at
 2D). Every other op of a block is per token and runs on the shard as it is.
+
+The block's options, as in JAX (`layers.py:155-208, 394-463`):
+- `quant="w8a8"`: qkv, proj, fc1 and fc2 are `QuantLinear`s (int8 products,
+  `ops/quant.py`); adaLN, the embedders and the final layer stay in the
+  activation dtype, and the attention core is unchanged (kernel 1).
+- `tome_r > 0`: token merging (`ops/tome.py`); one match from the block
+  input, the attention branch (and the MLP branch with `tome_mlp`) on N - r
+  tokens, its output unmerged to N.
+- `moe_experts > 0`: the MLP is a routed `MoeMlp` (`models/moe.py`), whose
+  aux values the block returns beside its output (`forward_aux`).
 """
 
 from __future__ import annotations
@@ -30,10 +40,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import RING, attention_qkv, resolve_backend
+from ..ops.quant import QUANT_MODES, int8_matmul, quantize_cols
+from ..ops.tome import bipartite_soft_matching_2d
+from .moe import MoeMlp
 
 __all__ = [
     "modulate",
     "Linear",
+    "QuantLinear",
     "PatchEmbed",
     "TimestepEmbedder",
     "LabelEmbedder",
@@ -65,6 +79,35 @@ class Linear(nn.Linear):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class QuantLinear(Linear):
+    """Int8 W8A8 `Linear` for inference (counterpart of `QuantDenseGeneral`):
+    the same fp32 `weight` (out, in) and `bias`, so every state dict of the
+    float model loads unchanged. The input rows are quantised at every call
+    over the whole contraction axis, the weight per output channel; the
+    weight's int8 copy is kept until the weight changes (JAX quantises it in
+    the graph, and XLA hoists it out of the sampling loop)."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype)
+        self._wq = None
+        self._wq_key = None
+
+    def quantized_weight(self):
+        """quantize_cols of the (in, out) weight: int8 (in, out), a view of
+        an (out, in) tensor, and the fp32 (1, out) scales."""
+        w = self.weight
+        key = (w.data_ptr(), w.device, w._version)
+        if self._wq_key != key:
+            with torch.no_grad():
+                self._wq = quantize_cols(w.detach().t())
+            self._wq_key = key
+        return self._wq
+
+    def forward(self, x):
+        return int8_matmul(x, self.weight.t(), self.bias, out_dtype=self.dtype,
+                           wq=self.quantized_weight())
 
 
 class _ConvWeight(nn.Module):
@@ -161,14 +204,15 @@ class Attention(nn.Module):
     """Multi-head self-attention over the packed qkv projection."""
 
     def __init__(self, dim, num_heads, qkv_bias=True, dtype=torch.float32,
-                 attn_backend="auto"):
+                 attn_backend="auto", quant=None):
         super().__init__()
         assert dim % num_heads == 0
         self.dtype = dtype
         self.num_heads = num_heads
         self.attn_backend = resolve_backend(attn_backend)
-        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
-        self.proj = Linear(dim, dim, dtype=dtype)
+        linear = QuantLinear if quant else Linear
+        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.proj = linear(dim, dim, dtype=dtype)
 
     def forward(self, x, ring=None):
         """With `ring`, x is a token shard and attention runs around the ring
@@ -182,11 +226,12 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """Linear -> GELU(tanh) -> Linear."""
 
-    def __init__(self, in_features, hidden_features, dtype=torch.float32):
+    def __init__(self, in_features, hidden_features, dtype=torch.float32, quant=None):
         super().__init__()
         self.dtype = dtype
-        self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
-        self.fc2 = Linear(hidden_features, in_features, dtype=dtype)
+        linear = QuantLinear if quant else Linear
+        self.fc1 = linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = linear(hidden_features, in_features, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -195,51 +240,83 @@ class Mlp(nn.Module):
 class DiTBlock(nn.Module):
     """adaLN-Zero transformer block.
 
-    `forward` is the standard block; `full_step` also returns the attention
-    and MLP branch outputs, and `cached_step` reuses them with fresh adaLN
-    gates (the layer cache of the cached samplers). `remat_forward` runs the
-    block under one of JAX's remat policies (`fast_dit_tpu/models/dit.py:133-146`),
-    with the same operations in the same order as `full_step`, so its
-    gradients equal the plain block's bit for bit.
+    `forward` is the standard block; `forward_aux` also returns the MoE
+    router's aux values (None for a dense MLP); `full_step` also returns the
+    attention and MLP branch outputs, and `cached_step` reuses them with
+    fresh adaLN gates (the layer cache of the cached samplers).
+    `remat_forward` runs the block under one of JAX's remat policies
+    (`fast_dit_tpu/models/dit.py:133-146`), with the same operations in the
+    same order as `full_step`, so its gradients equal the plain block's bit
+    for bit; it returns (x, aux) too.
     """
 
     def __init__(self, hidden_size, num_heads, mlp_ratio=4.0, dtype=torch.float32,
-                 attn_backend="auto"):
+                 attn_backend="auto", quant=None, tome_r=0, tome_mlp=False, moe_experts=0,
+                 moe_top_k=2, moe_capacity=1.25):
         super().__init__()
+        if quant is not None and quant not in QUANT_MODES:
+            raise ValueError(f"quant={quant!r} not in {QUANT_MODES}")
+        if quant and moe_experts > 0:
+            raise ValueError("int8 quant + MoE is untested")  # JAX's refusal (layers.py:412)
         self.dtype = dtype
-        self.attn = Attention(hidden_size, num_heads, dtype=dtype, attn_backend=attn_backend)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), dtype=dtype)
+        self.tome_r = tome_r
+        self.tome_mlp = tome_mlp
+        self.moe = moe_experts > 0
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype, attn_backend=attn_backend,
+                              quant=quant)
+        hidden = int(hidden_size * mlp_ratio)
+        self.mlp = (MoeMlp(hidden_size, moe_experts, hidden, top_k=moe_top_k,
+                           capacity_factor=moe_capacity, dtype=dtype) if self.moe
+                    else Mlp(hidden_size, hidden, dtype=dtype, quant=quant))
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size, dtype=dtype))
 
     def _modulation(self, c):
         return self.adaLN_modulation(c).chunk(6, dim=-1)
 
-    def _attn_branch(self, x, shift_msa, scale_msa, ring=None):
-        return self.attn(modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa), ring)
+    def _attn_branch(self, x, shift_msa, scale_msa, ring=None, tome=None):
+        h = modulate(_layer_norm(x, self.dtype), shift_msa, scale_msa)
+        if tome is None:
+            return self.attn(h, ring)
+        merge, unmerge = tome
+        return unmerge(self.attn(merge(h), ring))
 
-    def _mlp_branch(self, x, gate_msa, attn_out, shift_mlp, scale_mlp):
-        """(x + gate_msa attn_out, mlp_out)."""
+    def _mlp_branch(self, x, gate_msa, attn_out, shift_mlp, scale_mlp, tome=None):
+        """(x + gate_msa attn_out, mlp_out, aux); aux is None for a dense MLP."""
         x = x + gate_msa[:, None, :] * attn_out
-        return x, self.mlp(modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp))
+        h = modulate(_layer_norm(x, self.dtype), shift_mlp, scale_mlp)
+        tome = tome if self.tome_mlp else None
+        out = self.mlp(h if tome is None else tome[0](h))
+        out, aux = out if self.moe else (out, None)
+        return x, (out if tome is None else tome[1](out)), aux
 
     def _after_attn(self, x, gate_msa, attn_out, shift_mlp, scale_mlp, gate_mlp):
-        x, mlp_out = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp)
-        return x + gate_mlp[:, None, :] * mlp_out
+        x, mlp_out, aux = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp)
+        return x + gate_mlp[:, None, :] * mlp_out, aux
 
     def forward(self, x, c, ring=None):
-        return self.full_step(x, c, ring)[0]
+        return self._step(x, c, ring)[0]
+
+    def forward_aux(self, x, c, ring=None):
+        x, _, aux = self._step(x, c, ring)
+        return x, aux
 
     def full_step(self, x, c, ring=None):
+        return self._step(x, c, ring)[:2]
+
+    def _step(self, x, c, ring=None):
+        """(x, (attn_out, mlp_out), aux)."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
-        attn_out = self._attn_branch(x, shift_msa, scale_msa, ring)
-        x, mlp_out = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp)
+        # one match from the block input serves both branches
+        tome = bipartite_soft_matching_2d(x, self.tome_r) if self.tome_r > 0 else None
+        attn_out = self._attn_branch(x, shift_msa, scale_msa, ring, tome)
+        x, mlp_out, aux = self._mlp_branch(x, gate_msa, attn_out, shift_mlp, scale_mlp, tome)
         x = x + gate_mlp[:, None, :] * mlp_out
-        return x, (attn_out, mlp_out)
+        return x, (attn_out, mlp_out), aux
 
     def remat_forward(self, x, c, ring=None, policy="nothing"):
-        """The block under `torch.utils.checkpoint` (non-reentrant), keeping
-        for the backward what JAX's policy keeps:
+        """The block under `torch.utils.checkpoint` (non-reentrant) -> (x, aux),
+        keeping for the backward what JAX's policy keeps:
 
         - "nothing": the block is one region; only its input is kept.
         - "attn": the attention branch and the rest are two regions; the
@@ -254,10 +331,13 @@ class DiTBlock(nn.Module):
         backward runs the attention branch again, since its kernel's
         backward needs the forward's output and row statistics: two
         forward-kernel launches and one backward launch per block and step.
+        A MoE router's aux values are outputs of the region that computes
+        them, so the recompute neither counts them again nor cuts their
+        gradient.
         """
         kw = dict(use_reentrant=False, preserve_rng_state=False)  # blocks draw nothing
         if policy == "nothing":
-            return checkpoint(self, x, c, ring, **kw)
+            return checkpoint(self.forward_aux, x, c, ring, **kw)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self._modulation(c)
         attn_out = checkpoint(self._attn_branch, x, shift_msa, scale_msa, ring, **kw)
         if policy == "attn":
@@ -265,9 +345,9 @@ class DiTBlock(nn.Module):
                               gate_mlp, **kw)
         if policy != "attn_mlp":
             raise ValueError(f"unknown remat policy {policy!r}")
-        x, mlp_out = checkpoint(self._mlp_branch, x, gate_msa, attn_out, shift_mlp, scale_mlp,
-                                **kw)
-        return x + gate_mlp[:, None, :] * mlp_out
+        x, mlp_out, aux = checkpoint(self._mlp_branch, x, gate_msa, attn_out, shift_mlp,
+                                     scale_mlp, **kw)
+        return x + gate_mlp[:, None, :] * mlp_out, aux
 
     def cached_step(self, x, c, attn_out, mlp_out):
         _, _, gate_msa, _, _, gate_mlp = self._modulation(c)

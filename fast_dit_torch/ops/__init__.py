@@ -1,7 +1,9 @@
 """Kernels and their plain versions: the packed-qkv attention forward and
 backward (`flash_attention`), the ring-attention hop forward and backward
 (`ring_attention`), their dispatch (`attention`), the fused AdamW + EMA
-update (`fused_update`) and the nvcc/ctypes build (`_build`). The module
+update (`fused_update`) and the nvcc/ctypes build (`_build`); and the
+stock-op options JAX leaves to XLA: W8A8 int8 products (`quant`) and token
+merging (`tome`). The module
 `ring_attention` is imported by its path: its function of the same name
 would hide it as an attribute of this package."""
 

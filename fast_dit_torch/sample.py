@@ -29,9 +29,13 @@ downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
 perturbation of every parameter, since the zero-initialised heads would
 otherwise make every output zero.
 
-Not ported yet, refused with a message (`check_args`): `--tome-ratio`,
-`--tome-mlp` and `--quantize`. Runs on the card unless `--device cpu` is
-given.
+`--tome-ratio R` merges that fraction of the tokens inside every block's
+attention (`ops/tome.py`; `--tome-mlp` also its MLP), `--quantize w8a8`
+runs the block projections as int8 products (`ops/quant.py`), and a
+`DiT-MoE-*` model routes each token to 2 of 8 expert MLPs; each composes
+with every sampler and the layer cache, as in JAX. `check_args` refuses
+only what JAX refuses, with JAX's messages. Runs on the card unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -58,16 +62,10 @@ FLOW_SAMPLERS = ("euler", "heun")
 
 
 def check_args(args, prog: str = "fast_dit_torch.sample") -> None:
-    """Raise SystemExit with a message for what the port does not run yet
-    and for flags that contradict each other."""
-    refused = {
-        "--tome-ratio > 0": args.tome_ratio > 0,
-        "--tome-mlp": args.tome_mlp,
-        f"--quantize {args.quantize}": args.quantize is not None,
-    }
-    bad = [flag for flag, on in refused.items() if on]
-    if bad:
-        raise SystemExit(f"{prog}: {', '.join(bad)} not ported yet (see ROADMAP.md)")
+    """Raise SystemExit with JAX's message for flags that contradict each
+    other."""
+    if args.quantize and DiT_models[args.model].keywords.get("moe_experts", 0):
+        raise SystemExit(f"{prog}: int8 quant + MoE is untested")
     if args.cache_interval > 1 and args.sampler in FLOW_SAMPLERS:
         raise SystemExit(f"{prog}: --sampler euler/heun integrate the flow ODE "
                          f"(diffusion/flow.py); the layer cache and the DDPM sigma band are "
@@ -95,14 +93,16 @@ def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
 
 def build_model(args, device, seed):
     """The DiT of `args` (--model, --image-size, --num-classes, --bf16,
-    --attn-backend, --ckpt; a flow --sampler means no learned-sigma
-    channels) on `device`, in eval mode, weights loaded; `--ckpt random` is
-    the init from `seed` plus `perturb_`."""
+    --attn-backend, --quantize, --tome-ratio, --tome-mlp, --ckpt; a flow
+    --sampler means no learned-sigma channels) on `device`, in eval mode,
+    weights loaded; `--ckpt random` is the init from `seed` plus
+    `perturb_`."""
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
         learn_sigma=args.sampler not in FLOW_SAMPLERS,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        attn_backend=args.attn_backend, device=device, seed=seed)
+        attn_backend=args.attn_backend, quant=args.quantize, tome_ratio=args.tome_ratio,
+        tome_mlp=args.tome_mlp, device=device, seed=seed)
     if args.ckpt == "random":
         perturb_(model)
     else:
@@ -270,10 +270,12 @@ def add_sampler_flags(parser) -> None:
                              "equal log-SNR or equal alpha_bar spacing (no effect at "
                              "--cache-interval 1)")
     parser.add_argument("--tome-ratio", type=float, default=0.0,
-                        help="token merging: only 0 (off) is ported")
-    parser.add_argument("--tome-mlp", action="store_true", help="not ported yet")
+                        help="token merging: the fraction of tokens merged inside every "
+                             "block's attention (0 = off, exact; at most 0.75)")
+    parser.add_argument("--tome-mlp", action="store_true",
+                        help="token-merge the MLP branch too")
     parser.add_argument("--quantize", type=str, default=None, choices=["w8a8"],
-                        help="not ported yet")
+                        help="int8 W8A8 block projections (qkv, proj, fc1, fc2)")
 
 
 def parse_args(argv=None):

@@ -26,9 +26,10 @@ the first three latent channels are quantised instead, as `sample_ddp.py`
 does. `--ckpt random` is the sampler's seeded init plus its 0.02
 perturbation, the same weights on every rank.
 
-Not ported yet, refused with a message (`sample.check_args`):
-`--tome-ratio` > 0, `--tome-mlp` and `--quantize`.
-Runs on the card unless `--device cpu` is given.
+`--tome-ratio`, `--tome-mlp`, `--quantize w8a8` and the `DiT-MoE-*` models
+build the model as `sample` does (`sample.build_model`); `check_args`
+refuses only what JAX refuses. Runs on the card unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ __all__ = ["build_parser", "check_args", "quantize", "generate",
 
 
 def check_args(args) -> None:
-    """Raise SystemExit with a message for what the port does not run yet
-    and for flags that do not fit together."""
+    """Raise SystemExit with JAX's message for flags that do not fit
+    together."""
     check_sampler_args(args, prog="fast_dit_torch.sample_ddp")
     if args.cfg_scale < 1.0:
         raise SystemExit("fast_dit_torch.sample_ddp: --cfg-scale must be >= 1.0")

@@ -16,6 +16,10 @@ it per JAX leaf. `--remat-policy` picks what the checkpointed blocks keep
 velocity-matching loss on `--flow-path` with a DiT built with
 `learn_sigma=False`; `--schedule-sampler loss-second-moment` draws eps
 timesteps by their loss history (not with flow, which draws continuous t).
+A `DiT-MoE-*` model adds its router's load-balance and z-losses to the loss
+(`--moe-aux-weight`, `--moe-z-weight`) and logs them with the share of
+dropped (token, choice) slots. `--native-loader` reads the feature files
+through the C++ loader (`data/native_loader.py`), with the same batches.
 
 Checkpoints are `torch.save` files in the reference trainer's layout,
 `{"model", "ema", "opt", "args"}` under the reference torch names, plus the
@@ -27,9 +31,9 @@ continues the step count; as in JAX (`train.py:126-156`), the data
 iterator starts again at epoch 0 and no batch is skipped. Runs on the card
 unless `--device cpu` is given.
 
-Not ported yet, refused with a message: `--tp`, `--fsdp`, `--ep` and
-`--native-loader`. `--scan-unroll` is accepted and has no effect (the blocks
-are a Python loop, not a scan).
+Not ported yet, refused with a message: `--tp`, `--fsdp` and `--ep`.
+`--scan-unroll` is accepted and has no effect (the blocks are a Python
+loop, not a scan).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import time
 import torch
 
 from ..ckpt import CheckpointManager
-from ..data import FeatureDataset, feature_batches, synthetic_features
+from ..data import FeatureDataset, NativeFeatureLoader, feature_batches, synthetic_features
 from ..diffusion import create_diffusion, create_named_schedule_sampler
 from ..models import REMAT_POLICIES, DiT_models
 from ..ops.attention import BACKENDS
@@ -59,7 +63,6 @@ def check_args(args) -> None:
         "--tp > 1": args.tp > 1,
         "--fsdp": args.fsdp,
         "--ep > 1": args.ep > 1,
-        "--native-loader": args.native_loader,
     }
     bad = [flag for flag, on in refused.items() if on]
     if bad:
@@ -106,13 +109,15 @@ def build(args):
     train_step = make_train_step(model, diffusion.schedule, ema_decay=args.ema_decay,
                                  grad_accum=args.grad_accum, lr=args.lr,
                                  objective=args.objective, flow_path=args.flow_path,
-                                 generator=generator)
+                                 generator=generator, moe_aux_weight=args.moe_aux_weight,
+                                 moe_z_weight=args.moe_z_weight)
     return model, diffusion, state, train_step
 
 
 def device_batches(args, device, logger=None):
     """One iterator of {"x", "y"} batches on `device` per epoch: synthetic
-    latents (one endless epoch) or the feature files."""
+    latents (one endless epoch) or the feature files, read by the Python
+    loader or, with --native-loader, the C++ one."""
     latent_size = args.image_size // 8
     if args.synthetic_data:
         epochs = [synthetic_features(args.global_batch_size, latent_size=latent_size,
@@ -125,8 +130,17 @@ def device_batches(args, device, logger=None):
         dataset = FeatureDataset(feat_dir, label_dir)
         if logger:
             logger.info(f"Dataset contains {len(dataset):,} features ({args.feature_path})")
-        epochs = [feature_batches(dataset, args.global_batch_size, seed=args.global_seed + e,
-                                  num_epochs=1) for e in range(args.epochs)]
+        if args.native_loader:
+            epochs = (NativeFeatureLoader(feat_dir, label_dir, args.global_batch_size,
+                                          seed=args.global_seed + e, num_epochs=1,
+                                          num_threads=args.num_workers)
+                      for e in range(args.epochs))
+            if logger:
+                logger.info("Using the native C++ feature loader")
+        else:
+            epochs = [feature_batches(dataset, args.global_batch_size,
+                                      seed=args.global_seed + e, num_epochs=1)
+                      for e in range(args.epochs)]
     for batches in epochs:
         yield ({"x": torch.from_numpy(b["x"]).to(device, non_blocking=True),
                 "y": torch.from_numpy(b["y"]).long().to(device, non_blocking=True)}
@@ -168,6 +182,8 @@ def main(args) -> None:
 
     train_steps, log_steps = state.step, 0
     running_loss = torch.zeros((), device=device)
+    moe_keys = ("moe_load_balance", "moe_router_z", "moe_dropped_frac")
+    running_moe = torch.zeros(len(moe_keys), device=device)
     start_time = time.time()
     logger.info(f"Training for {args.epochs} epochs...")
 
@@ -186,6 +202,8 @@ def main(args) -> None:
             for batch in batches:
                 metrics = train_step(state, batch)
                 running_loss += metrics["loss"]
+                if moe_keys[0] in metrics:
+                    running_moe += torch.stack([metrics[k] for k in moe_keys])
                 train_steps += 1
                 log_steps += 1
                 if train_steps % args.log_every == 0:
@@ -194,6 +212,11 @@ def main(args) -> None:
                     steps_per_sec = log_steps / (end_time - start_time)
                     logger.info(f"(step={train_steps:07d}) Train Loss: {avg_loss:.4f}, "
                                 f"Train Steps/Sec: {steps_per_sec:.2f}")
+                    if moe_keys[0] in metrics:
+                        lb, zl, dropped = (running_moe / log_steps).tolist()
+                        logger.info(f"(step={train_steps:07d}) MoE Load Balance: {lb:.4f}, "
+                                    f"Router Z: {zl:.4f}, Dropped Frac: {dropped:.4f}")
+                        running_moe.zero_()
                     running_loss.zero_()
                     log_steps = 0
                     start_time = time.time()
@@ -240,9 +263,9 @@ def parse_args(argv=None):
     parser.add_argument("--ema-decay", type=float, default=0.9999)
     parser.add_argument("--tp", type=int, default=1, help="not ported yet")
     parser.add_argument("--moe-aux-weight", type=float, default=1e-2,
-                        help="MoE load-balance loss weight (MoE is not ported yet)")
+                        help="load-balance aux-loss weight (DiT-MoE-* models)")
     parser.add_argument("--moe-z-weight", type=float, default=1e-3,
-                        help="MoE router z-loss weight (MoE is not ported yet)")
+                        help="router z-loss weight (DiT-MoE-* models)")
     parser.add_argument("--ep", type=int, default=1, help="not ported yet")
     parser.add_argument("--fsdp", action="store_true", help="not ported yet")
     parser.add_argument("--grad-accum", type=int, default=1)
@@ -288,7 +311,9 @@ def parse_args(argv=None):
                         choices=["default", "high", "highest"],
                         help="fp32 matmul precision: 'high' allows TF32; 'default' "
                              "leaves torch's setting")
-    parser.add_argument("--native-loader", action="store_true", help="not ported yet")
+    parser.add_argument("--native-loader", action="store_true",
+                        help="read the feature files with the C++ loader "
+                             "(native/dataloader.cc, built with g++ at first use)")
     parser.add_argument("--export-pt", action="store_true",
                         help="also save the EMA state dict alone at the end")
     # the port's own

@@ -28,7 +28,12 @@ device, so nothing waits for the card). Random draws come from one
 noise, then the label drops, per microbatch; `draws=` injects them instead
 (for the tests).
 
-The MoE auxiliary losses are not ported yet: the step refuses MoE models.
+A MoE model (`models/moe.py`) returns its per-layer aux values from the
+same forward (`want_aux=True`); per microbatch, their means over the layers
+join the loss as `moe_aux_weight * load_balance + moe_z_weight * router_z`
+(`train_lib.py:159-212`), and the metrics carry `moe_load_balance`,
+`moe_router_z` and `moe_dropped_frac` (telemetry, never in the loss). The
+step refuses quantised and token-merged models: both are inference-only.
 """
 
 from __future__ import annotations
@@ -135,7 +140,8 @@ def ema_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
                     grad_accum: int = 1, log_grad_norm: bool = False, lr: float = 1e-4,
                     weight_decay: float = 0.0, objective: str = "eps",
-                    flow_path: str = "linear", generator: Optional[torch.Generator] = None):
+                    flow_path: str = "linear", generator: Optional[torch.Generator] = None,
+                    moe_aux_weight: float = 1e-2, moe_z_weight: float = 1e-3):
     """Build `train_step(state, batch, draws=None) -> metrics`.
 
     batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels} on the
@@ -143,12 +149,16 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
     {"t" (int timesteps, or fp32 times in [0, 1) for flow), "noise", and
     optionally "weights" and "force_drop_ids"} used instead of the
     generator. `lr` and `weight_decay` serve the fused route; the AdamW
-    routes take them from `create_train_state`.
+    routes take them from `create_train_state`. `moe_aux_weight` and
+    `moe_z_weight` weigh a MoE model's load-balance and router z-losses.
     """
     if objective not in ("eps", "flow"):
         raise ValueError(f"unknown objective {objective!r}")
-    if getattr(model, "moe_experts", 0):
-        raise NotImplementedError("MoE models are not ported yet")
+    if getattr(model, "quant", None):
+        raise ValueError("int8 quantization is inference-only")
+    if getattr(model, "tome_ratio", 0) > 0:
+        raise ValueError("token merging is inference-only")
+    is_moe = getattr(model, "moe_experts", 0) > 0
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -169,9 +179,16 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
             t, noise, force = draw["t"], draw["noise"], draw.get("force_drop_ids")
             weights = draw.get("weights")
 
+        auxes = []  # the aux values of the loss's one model call, with their graph
+
         def model_fn(x_t, t_model):
-            return model(x_t, t_model, y, train=True, force_drop_ids=force,
-                         generator=generator)
+            if not is_moe:
+                return model(x_t, t_model, y, train=True, force_drop_ids=force,
+                             generator=generator)
+            out, aux = model(x_t, t_model, y, train=True, force_drop_ids=force,
+                             generator=generator, want_aux=True)
+            auxes.append(aux)
+            return out
 
         if objective == "flow":
             terms = flow_training_losses(model_fn, x, t, noise, path=flow_path)
@@ -179,10 +196,19 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
             terms = training_losses(schedule, model_fn, x, t, noise)
         per_example = terms["loss"]
         # unit weights (uniform t, flow) leave the mean as it is
-        (per_example.mean() if weights is None else (weights * per_example).mean()).backward()
+        loss = per_example.mean() if weights is None else (weights * per_example).mean()
+        metrics = {k: v.detach().mean() for k, v in terms.items()}
+        if is_moe:
+            (aux,) = auxes
+            lb, zl = aux["load_balance"].mean(), aux["router_z"].mean()
+            loss = loss + moe_aux_weight * lb + moe_z_weight * zl
+            metrics["moe_load_balance"] = lb.detach()
+            metrics["moe_router_z"] = zl.detach()
+            metrics["moe_dropped_frac"] = aux["dropped_frac"].detach().mean()
+        loss.backward()
         if sampler_state is not None:
             sampler_state = update_with_losses(sampler_state, t, per_example.detach())
-        return {k: v.detach().mean() for k, v in terms.items()}, sampler_state
+        return metrics, sampler_state
 
     def train_step(state: TrainState, batch, draws=None) -> Dict[str, torch.Tensor]:
         params = state.params()

@@ -520,3 +520,119 @@ def test_sample_ddp_on_the_card(cuda, tmp_path):
     for i in range(6):
         with open(f"{res['sample_dir']}/{i:06d}.png", "rb") as f:
             assert np.array_equal(decode_png(f.read()), arr[i])
+
+
+# token merging at 256² runs kernel 1 at S = 256 - r: 180 at ratio 0.3, 128 at 0.5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [180, 128])
+def test_attention_kernel_at_the_tome_lengths(cuda, S, dtype):
+    qkv = _qkv(cuda, 16, S, 16, 72, dtype, False, seed=11)
+    out = flash_attention_qkv_flat(qkv, 16)
+    ref = _attention_qkv_plain(qkv, 16, 72 ** -0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def _small_chain(device, options, cached):
+    """A small fp32 DiT with `options`, DDPM 6 steps at CFG 4.0 (cached:
+    the layer cache at interval 2), from seeded weights and noise."""
+    from fast_dit_torch import sample as cli
+    from fast_dit_torch.diffusion import create_diffusion
+    from fast_dit_torch.models import DiT_models
+
+    name = "DiT-MoE-S/2-8E2A" if options.pop("moe", False) else "DiT-S/2"
+    model = DiT_models[name](input_size=8, depth=2, device=device, seed=0, **options)
+    cli.perturb_(model)
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn(2, 4, 8, 8, generator=g)
+    noise = torch.cat([noise, noise]).to(device)
+    step_noise = torch.randn(6, 4, 4, 8, 8, generator=g).to(device)
+    y = torch.tensor([1, 7, 1000, 1000], device=device)
+    d = create_diffusion("6", device=device)
+    cfg = lambda x, t, **kw: model.forward_with_cfg(x, t, y, 4.0, **kw)
+    kw = dict(noise=noise, step_noise=step_noise, clip_denoised=False)
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        if cached:
+            out = d.p_sample_loop_cached(lambda x, t: cfg(x, t, want_cache=True),
+                                         lambda x, t, c: cfg(x, t, cache=c), noise.shape,
+                                         interval=2, **kw)
+        else:
+            out = d.p_sample_loop(cfg, noise.shape, **kw)
+    return out.cpu(), dict(_build.launch_counts)
+
+
+@pytest.mark.parametrize("options,cached,rtol", [
+    ({"tome_ratio": 0.5}, False, 1e-4), ({"tome_ratio": 0.3, "tome_mlp": True}, False, 1e-4),
+    ({"tome_ratio": 0.5}, True, 1e-4), ({"moe": True}, False, 1e-4),
+    # a one-ulp difference before a quantiser can move an int8 code by one
+    # step (ROADMAP.md, tolerances)
+    ({"quant": "w8a8"}, False, 1e-2), ({"quant": "w8a8"}, True, 1e-2)],
+    ids=["tome-0.5", "tome-0.3-mlp", "tome-0.5-cache2", "moe", "w8a8", "w8a8-cache2"])
+def test_option_chains_card_vs_cpu(cuda, options, cached, rtol):
+    """Each new option's chain on the card (kernel 1) and on the CPU: the
+    final latents within `rtol` of max; kernel 1 launched depth x refresh
+    steps (6 steps; 3 refreshes at interval 2)."""
+    got, launches = _small_chain(cuda, dict(options), cached)
+    want, _ = _small_chain(torch.device("cpu"), dict(options), cached)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+    assert launches["attention_fwd"] == 2 * (3 if cached else 6)
+
+
+def test_int8_gemm_on_the_card_is_exact(cuda):
+    """`int8_mm` (cuBLAS through `torch._int_mm`) at DiT-XL/2's four
+    projection shapes, and at 5 rows (padded to 17): the int32 products of
+    an integer matmul on the CPU."""
+    from fast_dit_torch.ops.quant import int8_mm
+
+    g = torch.Generator().manual_seed(4)
+    for M, K, N in ((4096, 1152, 3456), (4096, 1152, 1152), (4096, 1152, 4608),
+                    (4096, 4608, 1152), (5, 64, 24)):
+        a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+        got = int8_mm(a.to(cuda), b.to(cuda).t())
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), a.long().mm(b.long().t()).int())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_mm(torch.zeros(32, 12, dtype=torch.int8, device=cuda),
+                torch.zeros(12, 8, dtype=torch.int8, device=cuda))
+
+
+def test_moe_train_steps_card_vs_cpu(cuda):
+    """Two steps of a small fp32 MoE DiT (remat) on the card and the CPU:
+    losses within 1e-5 relative, gradients within 1e-4 of their largest,
+    the same kept (choice, token) masks in every forward; kernel 1 twice and
+    kernel 2 once a block a step."""
+    from fast_dit_torch import sample as cli
+    from fast_dit_torch.diffusion import create_diffusion
+    from fast_dit_torch.models import DiT_models
+    from fast_dit_torch.train import create_train_state, make_train_step
+
+    g = torch.Generator().manual_seed(5)
+    x, y = torch.randn(4, 4, 8, 8, generator=g), torch.tensor([1, 7, 3, 999])
+    draws = [{"t": torch.randint(0, 1000, (4,), generator=g),
+              "noise": torch.randn(4, 4, 8, 8, generator=g)} for _ in range(2)]
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        model = DiT_models["DiT-MoE-S/2-8E2A"](input_size=8, depth=2, remat=True,
+                                               class_dropout_prob=0.0, device=device, seed=0)
+        cli.perturb_(model)
+        masks = []
+
+        def keep(m, inp, out):
+            with torch.no_grad():
+                masks.append(m.route(inp[0]).keep.cpu())
+        for b in model.blocks:
+            b.mlp.register_forward_hook(keep)
+        state = create_train_state(model, lr=1e-4)
+        step = make_train_step(model, create_diffusion("", device=device).schedule, lr=1e-4)
+        batch = {"x": x.to(device), "y": y.to(device)}
+        _build.reset_launch_counts()
+        losses = [step(state, batch, draws=[{k: v.to(device) for k, v in d.items()}])["loss"]
+                  .item() for d in draws]
+        res[device.type] = (losses, torch.cat([p.grad.flatten() for p in model.parameters()])
+                            .cpu(), masks, dict(_build.launch_counts))
+    (cl, cg, cm, launches), (pl, pg, pm, _) = res["cuda"], res["cpu"]
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(cl, pl))
+    assert (cg - pg).abs().max() <= 1e-4 * pg.abs().max()
+    assert len(cm) == len(pm) == 8 and all(torch.equal(a, b) for a, b in zip(cm, pm))
+    assert launches["attention_fwd"] == 2 * 2 * 2 and launches["attention_bwd"] == 2 * 2

@@ -47,7 +47,9 @@ def test_port_sources_exist():
                  "fast_dit_torch/sample_ddp.py", "fast_dit_torch/diffusion/flow.py",
                  "fast_dit_torch/diffusion/guidance_interval.py",
                  "fast_dit_torch/diffusion/timestep_samplers.py",
-                 "fast_dit_torch/ckpt/checkpoint.py"):
+                 "fast_dit_torch/ckpt/checkpoint.py", "fast_dit_torch/ops/quant.py",
+                 "fast_dit_torch/ops/tome.py", "fast_dit_torch/models/moe.py",
+                 "fast_dit_torch/data/native_loader.py"):
         assert must in rel
 
 

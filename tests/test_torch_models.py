@@ -108,12 +108,13 @@ def test_converter_matches_jax_export_and_loads_strict():
 
 
 def test_registry_names_match_jax():
+    # the MoE family is ported too (tests/test_torch_moe.py): every entry
     from fast_dit_tpu.models import DiT_models as jax_models
 
-    dense = {k for k in jax_models if "MoE" not in k}
-    assert set(DiT_models) == dense
-    for name in dense:
+    assert set(DiT_models) == set(jax_models)
+    for name in jax_models:
         j, p = jax_models[name], DiT_models[name]
+        assert j.keywords == p.keywords, name
         for key in ("depth", "hidden_size", "patch_size", "num_heads"):
             assert j.keywords[key] == p.keywords[key], (name, key)
 

@@ -97,10 +97,10 @@ def test_quantize_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    # the samplers, Karras spacing, the guidance interval and the layer cache
-    # are ported (their runs: tests/test_torch_samplers.py and
-    # tests/test_torch_cached_sampling.py); the cases that named them pair
-    # each with a flag that stays unported, which alone must be named
+    # each case once paired a ported flag with one that was not; ToMe,
+    # W8A8 and the MoE models are ported now (tests/test_torch_tome.py,
+    # test_torch_quant.py, test_torch_moe.py), so every case runs, but for
+    # the combination JAX itself refuses, which is refused with its message
     ["--sampler", "dpm", "--cache-interval", "2", "--quantize", "w8a8"],
     ["--sampler", "unipc", "--tome-ratio", "0.5"],
     ["--sampler", "euler", "--quantize", "w8a8"], ["--sampler", "heun", "--tome-mlp"],
@@ -108,15 +108,31 @@ def test_quantize_matches_jax():
     ["--cfg-interval", "0.19", "1.61", "--tome-mlp"],
     ["--cache-interval", "2", "--tome-mlp"], ["--tome-ratio", "0.5"], ["--quantize", "w8a8"],
 ])
-def test_flags_not_ported_are_refused(tmp_path, flags):
+def test_flags_not_ported_are_refused(tmp_path, flags, monkeypatch):
+    """The flag lists that were refused: JAX's refusal (dpm with the layer
+    cache, `sample_ddp.py`'s assert) keeps its message and writes nothing;
+    every other list builds the model it names and writes the npz."""
     args = cli.build_parser().parse_args(["--device", "cpu", "--ckpt", "random",
+                                          "--model", "DiT-S/8", "--num-sampling-steps", "2",
+                                          "--per-proc-batch-size", "2",
+                                          "--num-fid-samples", "2",
                                           "--sample-dir", str(tmp_path), *flags])
-    with pytest.raises(SystemExit, match=r"not ported yet \(see ROADMAP.md\)") as e:
-        cli.main(args)
-    unported = [f for f in flags if f in ("--tome-ratio", "--tome-mlp", "--quantize")]
-    assert all(f in str(e.value) for f in unported)
-    assert "--sampler" not in str(e.value) and "--cache-interval" not in str(e.value)
-    assert os.listdir(tmp_path) == []
+    if "dpm" in flags and "--cache-interval" in flags:
+        with pytest.raises(SystemExit, match=r"--cache-interval composes with ddpm/ddim; "
+                                             r"dpm/unipc are already"):
+            cli.main(args)
+        assert os.listdir(tmp_path) == []
+        return
+    built = []
+    monkeypatch.setattr(cli, "build_model", lambda *a, **k: built.append(build_model(*a, **k))
+                        or built[-1])
+    res = cli.main(args)
+    (model,) = built
+    assert model.tome_r == (8 if "--tome-ratio" in flags else 0)  # 16 tokens, ratio 0.5
+    assert model.tome_mlp == ("--tome-mlp" in flags)
+    assert (model.quant == "w8a8") == ("--quantize" in flags)
+    arr = np.load(res["npz"])["arr_0"]
+    assert res["images"] == 2 and arr.shape == (2, 32, 32, 3) and arr.std() > 0
 
 
 # One rank of a gloo world: the CLI itself, world and rank from the environment.

@@ -587,20 +587,30 @@ def test_sample_cli_dpm_end_to_end_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags,message", [
     # the layer cache is ported (tests/test_torch_cached_sampling.py): with
-    # DPM-Solver it is refused with JAX's own message, and beside a flag that
-    # stays unported only that flag is named
+    # DPM-Solver it is refused with JAX's own message. ToMe and W8A8 are
+    # ported too (tests/test_torch_tome.py, test_torch_quant.py): their cases
+    # (message None) now run, with the model the flags name
     (["--sampler", "dpm", "--cache-interval", "2"],
      r"--cache-interval composes with ddpm/ddim; dpm/unipc are already"),
-    (["--tome-ratio", "0.5"], r"--tome-ratio > 0 not ported yet"),
-    (["--tome-mlp"], r"--tome-mlp not ported yet"),
-    (["--quantize", "w8a8"], r"--quantize w8a8 not ported yet"),
-    (["--cache-interval", "3", "--quantize", "w8a8"], r"sample: --quantize w8a8 not ported yet"),
+    (["--tome-ratio", "0.5"], None),
+    (["--tome-mlp"], None),
+    (["--quantize", "w8a8"], None),
+    (["--cache-interval", "3", "--quantize", "w8a8"], None),
     (["--sampler", "euler", "--cfg-interval", "0.19", "1.61"], r"--sampler euler integrates"),
     (["--cfg-scale", "1.0", "--cfg-interval", "0.19", "1.61"], r"needs --cfg-scale > 1"),
 ])
 def test_sample_cli_refuses_by_name(flags, message, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     args = cli.parse_args(["--device", "cpu", "--ckpt", "random", "--model", "DiT-S/8", *flags])
+    if message is None:
+        args.num_sampling_steps = 3
+        cli.main(args)
+        out = np.load(tmp_path / "sample.npy")
+        assert out.shape == (len(cli.CLASS_LABELS), 4, 32, 32) and np.isfinite(out).all()
+        model = cli.build_model(args, torch.device("cpu"), args.seed)
+        assert model.tome_r == (8 if "--tome-ratio" in flags else 0)
+        assert (model.quant == "w8a8") == ("--quantize" in flags)
+        return
     with pytest.raises(SystemExit, match=message) as e:
         cli.main(args)
     assert "--cache-interval > 1" not in str(e.value)

@@ -387,7 +387,7 @@ def test_cli_trains_on_cpu_in_process_and_writes_a_loadable_checkpoint(tmp_path)
     assert all(torch.equal(exported[k], ckpt["ema"][k]) for k in exported)
 
 
-UNPORTED = ("--tp", "--fsdp", "--ep", "--native-loader")
+UNPORTED = ("--tp", "--fsdp", "--ep")
 
 
 @pytest.mark.parametrize("flags", [
@@ -395,7 +395,9 @@ UNPORTED = ("--tp", "--fsdp", "--ep", "--native-loader")
     # loss-second-moment sampler are ported (their runs:
     # test_cli_runs_the_remat_policies_and_nu_kinds_on_cpu,
     # tests/test_torch_resume.py); those cases now pair them with a flag that
-    # stays unported, which alone must be named
+    # stays unported, which alone must be named. --native-loader is ported
+    # too (tests/test_torch_native_loader.py): its two cases, which name no
+    # unported flag, now run one step on a feature folder through it
     ["--resume", "--tp", "2"], ["--tp", "2"], ["--fsdp"], ["--ep", "2"], ["--native-loader"],
     ["--objective", "flow", "--resume", "--fsdp"],
     ["--schedule-sampler", "loss-second-moment", "--remat-policy", "attn_mlp", "--ep", "2"],
@@ -404,6 +406,22 @@ UNPORTED = ("--tp", "--fsdp", "--ep", "--native-loader")
     ["--fused-optimizer", "--factored-nu", "--fsdp"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
+    if not any(f in UNPORTED for f in flags):
+        feat = tmp_path / "features"
+        rs = np.random.RandomState(0)
+        for sub, arr in (("features", lambda: rs.randn(1, 4, 32, 32).astype(np.float32)),
+                         ("labels", lambda: np.array([rs.randint(0, 1000)]))):
+            (feat / f"imagenet256_{sub}").mkdir(parents=True)
+            for i in range(2):
+                np.save(feat / f"imagenet256_{sub}" / f"{i}.npy", arr())
+        args = cli.parse_args(["--device", "cpu", "--feature-path", str(feat), "--model",
+                               "DiT-S/8", "--global-batch-size", "2", "--max-steps", "1",
+                               "--log-every", "1", "--results-dir", str(tmp_path / "r"), *flags])
+        cli.main(args)
+        (exp,) = (tmp_path / "r").iterdir()
+        log = (exp / "log.txt").read_text()
+        assert "Using the native C++ feature loader" in log and "Train Loss" in log
+        return
     args = cli.parse_args(["--device", "cpu", "--synthetic-data", "--model", "DiT-S/2",
                            "--results-dir", str(tmp_path), *flags])
     with pytest.raises(SystemExit, match="not ported yet") as e:

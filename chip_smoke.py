@@ -112,6 +112,22 @@ nonzero:
                   state from another seed that restores the file and runs the same 2
                   batches (every tensor equal); file size, save and restore seconds;
                   then the trainer CLI's own --resume (DiT-S/2).
+12c. train_parallel: the parallel trainer, its ranks processes on cuda:0 joined over
+                  gloo (NCCL refuses two ranks on one GPU): kernel 3 over the local
+                  leaves of an FSDP-2 rank of DiT-XL/2, every element equal to
+                  `_update_math`; small fp32 routes (DiT-S/2, DiT-MoE-S/2-8E2A at 256²,
+                  depth 4, batch 8, 2 steps: DP 2 with AdamW, fused fp32, bf16 and factored nu,
+                  loss-second-moment t and grad-accum 2, FSDP 2, TP 2, EP 2; TP 2 + FSDP
+                  and EP 2 + FSDP on 4 ranks) against one process on the card, to the
+                  CPU tests' limits, ranks that hold the same part of a parameter
+                  holding the same bytes; the trainer CLI's functions at DiT-XL/2, batch
+                  32, bf16, remat "nothing", --fused-optimizer, 3 steps after 2 under
+                  sync debug mode "error" (the gloo collectives exempt), with DP 2,
+                  FSDP 2, TP 2, and DiT-MoE-XL/2-8E2A cut to depth 14 with EP 2: losses
+                  within 2e-2 of one process, launches exact per rank, s/step, peak
+                  memory, collective ms, DP 2's step profiled; then the CLI's main at world
+                  1 over NCCL. Kernels 1 and 2 at the ranks' shapes, (16,256,16,72) and
+                  (32,256,8,72), are in phases 3 and 4.
 13. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
                   shard, at a ragged Sq != Sk and at logits past the clamp, with its
@@ -141,6 +157,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -184,14 +201,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (8, 256, ...): the conditional half alone, an unguided step of the guidance interval
+# (16, 256, 16, 72) is also a rank's shape under DP 2 and FSDP 2 at batch 32,
+# (32, 256, 8, 72) a rank's under TP 2
 KERNEL_SHAPES = [(16, 256, 16, 72), (8, 256, 16, 72), (32, 256, 16, 72), (16, 1024, 16, 72),
-                 (2, 200, 6, 64)]
+                 (2, 200, 6, 64), (32, 256, 8, 72)]
 MAIN_SHAPE = (16, 256, 16, 72)  # DiT-XL/2 256², CFG batch of 8 labels
 # the backward against its plain version, relative to max |dqkv|: fp32, sums
 # of up to 1024 fp32 terms taken in other orders; bf16, one bf16 rounding of
 # the output (2^-8) and delta formed from the bf16-rounded forward output
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-BWD_SHAPES = [(32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64)]
+BWD_SHAPES = [(32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64), (16, 256, 16, 72),
+              (32, 256, 8, 72)]
 TRAIN_SHAPE = (32, 256, 16, 72)  # DiT-XL/2 256², batch 32
 # the large-logit case, at MAIN_SHAPE (forward) and TRAIN_SHAPE (backward): q
 # and k scaled by 4, so the logits reach about 100, past the TPU's bf16 clamp
@@ -270,6 +290,38 @@ MORE_TRAIN_STEPS = 3
 # the resume check: DiT-XL/2's width at depth 4 (28 blocks of fp32 model, EMA,
 # mu and nu make an 11 GB file per route), batch 16, every route and nu kind
 RESUME_DEPTH, RESUME_BATCH = 4, 16
+# train_parallel: ranks are processes on cuda:0 over gloo. The small fp32
+# checks (DiT-S/2 and DiT-MoE-S/2-8E2A at 256² cut to depth 4, batch 8, 2
+# steps, by world size); then DiT-XL/2 at batch 32, bf16, remat "nothing",
+# the fused optimizer, PAR_STEPS timed steps after PAR_WARMUP, with DP 2, FSDP
+# 2 and TP 2, and the MoE cut to PAR_EP_DEPTH (two ranks' state must fit one
+# card) with EP 2; the main path's route (PAR_PROFILED) also profiled
+PAR_TIMEOUT = 900
+PAR_SMALL_BATCH, PAR_SMALL_STEPS = 8, 2
+_S2, _MOE_S2 = ("DiT-S/2", {"depth": 4}), ("DiT-MoE-S/2-8E2A", {"depth": 4})
+PAR_SMALL = {
+    2: [{"name": "dp2_adamw", "model": _S2, "mesh": ("model", 1)},
+        {"name": "dp2_fused_nu_fp32", "model": _S2, "mesh": ("model", 1),
+         "state": {"fused_optimizer": True}},
+        {"name": "dp2_fused_nu_bf16", "model": _S2, "mesh": ("model", 1),
+         "state": {"fused_optimizer": True, "nu_dtype": torch.bfloat16}},
+        {"name": "dp2_fused_factored_nu", "model": _S2, "mesh": ("model", 1),
+         "state": {"fused_optimizer": True, "factored_nu": True}},
+        {"name": "dp2_loss_second_moment", "model": _S2, "mesh": ("model", 1), "lsm": True},
+        {"name": "dp2_grad_accum_2", "model": _S2, "mesh": ("model", 1),
+         "step": {"grad_accum": 2}},
+        {"name": "fsdp2", "model": _S2, "mesh": ("model", 1), "fsdp": True},
+        {"name": "tp2", "model": _S2, "mesh": ("model", 2), "tp": True},
+        {"name": "ep2", "model": _MOE_S2, "mesh": ("expert", 2)}],
+    4: [{"name": "tp2_fsdp", "model": _S2, "mesh": ("model", 2), "tp": True, "fsdp": True},
+        {"name": "ep2_fsdp", "model": _MOE_S2, "mesh": ("expert", 2), "fsdp": True}],
+}
+PAR_FULL = [("dp2", ["--fused-optimizer"]), ("fsdp2", ["--fused-optimizer", "--fsdp"]),
+            ("tp2", ["--fused-optimizer", "--tp", "2"])]
+PAR_EP_DEPTH = 14
+PAR_WARMUP, PAR_STEPS = 2, 3
+PAR_PROFILED = ("dp2",)
+PAR_LOSS_RTOL = 2e-2   # bf16 activations: one process and the world sum in other orders
 RESUME_ROUTES = [("adamw", {}), ("mixed_precision", {"mixed_precision": True}),
                  ("fused", {"fused_optimizer": True}),
                  ("fused_nu_bf16", {"fused_optimizer": True, "nu_dtype": torch.bfloat16}),
@@ -1285,6 +1337,438 @@ def phase_resume():
                                            "latest_step": latest, "resumed_at": 1}})
 
 
+# -- 12c. train_parallel: the parallel trainer, its ranks on one card --------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(n, fn, timeout=PAR_TIMEOUT, **kwargs):
+    """Run chip_smoke's `fn(**kwargs)` in n processes on cuda:0, each joining
+    the world through the port's own bring-up (`utils.platform`, torchrun's
+    environment with LOCAL_RANK 0 for all, a free local port) over gloo:
+    NCCL refuses two ranks on one GPU. Returns the ranks' results. Every
+    kernel is built before (phase `build`), so no rank runs nvcc."""
+    d = os.path.join(OUT_DIR, f"ranks-{fn}-{n}-{time.time_ns()}")
+    os.makedirs(d)
+    job = os.path.join(d, "job.pt")
+    torch.save(kwargs, job)
+    boot = (f"import os, sys\nsys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+            "import torch, torch.distributed as dist\n"
+            "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
+            "from fast_dit_torch.utils.platform import maybe_initialize_distributed\n"
+            "maybe_initialize_distributed(torch.device('cuda'), backend='gloo')\n"
+            "import chip_smoke\n"
+            f"res = chip_smoke.{fn}(**torch.load({job!r}, weights_only=False))\n"
+            f"torch.save(res, os.path.join({d!r}, f'out{{dist.get_rank()}}.pt'))\n"
+            "dist.barrier()\n"
+            "dist.destroy_process_group()\n")
+    port = str(_free_port())
+    logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, "-c", boot],
+                              env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(n),
+                                   "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": port},
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = "\n".join(f"--- rank {r} (rc {procs[r].returncode}):\n"
+                          + open(os.path.join(d, f"log{r}.txt")).read()[-3000:] for r in bad)
+        raise RuntimeError(f"{n} ranks of {fn} failed:\n{tails}")
+    out = [torch.load(os.path.join(d, f"out{r}.pt"), weights_only=False) for r in range(n)]
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _par_small_route(route, world):
+    """One small fp32 route (a dict of PAR_SMALL) for 2 steps on the card:
+    on the route's mesh when `world`, else as one process on the global
+    batch. Returns the losses, the gathered checkpoint tree on the host
+    (rank 0; None elsewhere) and each parameter's local bytes' digest."""
+    import hashlib
+
+    from fast_dit_torch.ckpt.checkpoint import checkpoint_tree
+    from fast_dit_torch.parallel.mesh import (batch_rows, create_expert_mesh, create_mesh,
+                                              shard_params)
+    from fast_dit_torch.train import make_sharded_train_step
+    name, kw = route["model"]
+    model = DiT_models[name](input_size=32, remat=True, device="cuda", seed=0, **kw)
+    cli.perturb_(model)
+    mesh = None
+    if world:
+        inner, m = route["mesh"]
+        mesh = create_expert_mesh(m) if inner == "expert" else create_mesh(model=m)
+        shard_params(model, mesh, tp=route.get("tp", False), fsdp=route.get("fsdp", False))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sampler = None
+    if route.get("lsm"):
+        sampler = LossSecondMomentState.create(1000, device="cuda")
+        sampler = dataclasses.replace(
+            sampler, loss_history=torch.rand(sampler.loss_history.shape, device="cuda",
+                                             generator=torch.Generator(device="cuda")
+                                             .manual_seed(1)),
+            loss_counts=torch.full_like(sampler.loss_counts, sampler.history_per_term))
+    state_kw = route.get("state", {})
+    fused = state_kw.get("fused_optimizer", False)
+    state = create_train_state(model, lr=None if fused else LR, generator=g,
+                               sampler_state=sampler, **state_kw)
+    kw = dict(lr=LR, log_grad_norm=True, generator=g, **route.get("step", {}))
+    schedule = create_diffusion("", device="cuda").schedule
+    step = (make_sharded_train_step(model, schedule, mesh, **kw) if world else
+            make_train_step(model, schedule, **kw))
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(PAR_SMALL_BATCH, 4, 32, 32).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.randint(0, 1000, PAR_SMALL_BATCH)).cuda()
+    rows = batch_rows(mesh, PAR_SMALL_BATCH) if world else slice(None)
+    metrics = [step(state, {"x": x[rows], "y": y[rows]}) for _ in range(PAR_SMALL_STEPS)]
+    out = {"metrics": [{k: v.item() for k, v in m.items()} for m in metrics]}
+    tree = checkpoint_tree(state)
+    out["tree"] = None if tree is None else _to_host(tree)
+    if world:
+        out["digest"] = {s.name: hashlib.sha1(p.detach().cpu().view(torch.uint8).numpy()
+                                              .tobytes()).hexdigest()
+                         for s, p in zip(model.sharding.shards, model.parameters())}
+        out["keys"] = {s.name: (s.data_sharded, s.inner_sharded)
+                       for s in model.sharding.shards}
+        out["coords"] = (mesh.data_rank, mesh.inner_rank)
+    return out
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def par_small_ranks(routes):
+    """A rank's side of the small checks: every route, in order."""
+    return {r["name"]: _par_small_route(r, True) for r in routes}
+
+
+def _par_tree_err(got, want, bf16_grads, path=""):
+    """The largest violation of the CPU tests' limits
+    (tests/test_torch_data_parallel.py) over two checkpoint trees: 0 when
+    every element is within them, else the worst excess (and its path)."""
+    if isinstance(want, dict):
+        return max((_par_tree_err(got[k], want[k], bf16_grads, f"{path}.{k}" if path else k)
+                    for k in want), default=(0.0, ""))
+    if isinstance(want, (list, tuple)):
+        return max((_par_tree_err(a, b, bf16_grads, f"{path}.{i}")
+                    for i, (a, b) in enumerate(zip(got, want))), default=(0.0, ""))
+    if not torch.is_tensor(want) or not want.is_floating_point() or not want.numel():
+        return (0.0, "")
+    w = want.double()
+    err = (got.double() - w).abs()
+    lim = 2e-5 + 2e-3 * w.abs()
+    if bf16_grads and path.startswith(("model", "opt.master")):
+        lim = torch.clamp(lim, min=2 * LR * PAR_SMALL_STEPS)
+    elif bf16_grads and path.startswith("ema"):
+        lim = lim + 2 * LR * PAR_SMALL_STEPS * 1e-4
+    elif bf16_grads:
+        lim = 2e-5 + 2 * 2.0 ** (torch.floor(torch.log2(w.abs().max() + 1e-30)) - 7)
+    return ((err - lim).max().item() if bool((err > lim).any()) else 0.0, path)
+
+
+def _par_small_checks():
+    """Each small route in a world of 2 or 4 ranks on the card against one
+    process on the card: losses and gradient norm, and every tensor of the
+    gathered checkpoint tree, to the CPU tests' limits; ranks holding the
+    same part of a parameter hold the same bytes."""
+    out = {}
+    for n, routes in PAR_SMALL.items():
+        routes = [dict(r, name=r["name"]) for r in routes]
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(n, "par_small_ranks", routes=routes)
+        world_s = time.perf_counter() - t0
+        for r in routes:
+            want = _par_small_route(r, False)
+            want["tree"] = _to_host(want["tree"])
+            res = [rk[r["name"]] for rk in ranks]
+            bf16_grads = bool(r.get("state"))
+            loss_err = 0.0
+            for got in res:
+                for a, b in zip(got["metrics"], want["metrics"]):
+                    for k in b:
+                        rtol = 2 ** -8 if bf16_grads and k == "grad_norm" else 2e-4
+                        excess = abs(a[k] - b[k]) - (2e-5 + rtol * abs(b[k]))
+                        if excess > 0:
+                            raise AssertionError(f"train_parallel {r['name']}: {k} {a[k]} vs "
+                                                 f"one process {b[k]}")
+                        loss_err = max(loss_err, abs(a[k] - b[k]) / max(abs(b[k]), 1e-12))
+            excess, where = _par_tree_err(
+                {k: res[0]["tree"][k] for k in ("model", "ema", "opt")},
+                {k: want["tree"][k] for k in ("model", "ema", "opt")}, bf16_grads)
+            if excess > 0:
+                raise AssertionError(f"train_parallel {r['name']}: {where} past the limit by "
+                                     f"{excess}")
+            worst = max((res[0]["tree"][k][name].double() - want["tree"][k][name].double())
+                        .abs().max().item() for k in ("model", "ema")
+                        for name in want["tree"][k] if want["tree"][k][name].is_floating_point())
+            differ = []
+            for pname, (data_sharded, inner_sharded) in res[0]["keys"].items():
+                groups = {}
+                for got in res:
+                    d, i = got["coords"]
+                    key = (d if data_sharded else None, i if inner_sharded else None)
+                    groups.setdefault(key, set()).add(got["digest"][pname])
+                differ += [pname for v in groups.values() if len(v) > 1]
+            if differ:
+                raise AssertionError(f"train_parallel {r['name']}: replicas differ in "
+                                     f"{differ[:5]}")
+            out[r["name"]] = {"ranks": n, "metric_max_rel_err": loss_err,
+                              "param_ema_max_abs_err": worst,
+                              "losses": [m["loss"] for m in res[0]["metrics"]]}
+        out[f"world_{n}_s"] = world_s
+    return out
+
+
+def _par_full_run(name, flags, depth_cut=None):
+    """A rank's side of one full-width route: the trainer CLI's own
+    functions on the world's mesh, PAR_WARMUP steps, then PAR_STEPS timed
+    steps under sync debug mode "error" (the gloo collectives exempt) with
+    the launch counts set to 0 just before and read just after; then, for
+    the routes of PAR_PROFILED, one more step profiled on rank 0."""
+    import torch.distributed as dist
+
+    from fast_dit_torch.parallel import collectives
+    world = dist.get_world_size()
+    if depth_cut is not None:
+        model_name, depth = depth_cut
+        DiT_models[f"{model_name}-depth{depth}"] = functools.partial(DiT_models[model_name],
+                                                                     depth=depth)
+    args = train_cli.parse_args(flags)
+    train_cli.check_args(args, world)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = train_cli.make_mesh(args)
+    model, _, state, train_step = train_cli.build(args, mesh, torch.device("cuda", 0))
+    batch = next(next(train_cli.device_batches(args, torch.device("cuda", 0), mesh=mesh)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warm = [train_step(state, batch)["loss"] for _ in range(PAR_WARMUP)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    collectives.exempt_ranges.update(count=0, seconds=0.0)
+    dist.barrier()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [train_step(state, batch)["loss"] for _ in range(PAR_STEPS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    exempt = dict(collectives.exempt_ranges)
+    dense = collections.Counter(
+        fu._COUNTS[v.dtype] for v in state.opt.nu
+        if not isinstance(v, fu.FactoredNu) and v.numel()) if args.fused_optimizer else {}
+    want = {**{k: 0 for k in launches}, "attention_fwd": 2 * model.depth * PAR_STEPS,
+            "attention_bwd": model.depth * PAR_STEPS,
+            **{k: n * PAR_STEPS for k, n in dense.items()}}
+    if launches != want:
+        raise AssertionError(f"train_parallel {name} rank {dist.get_rank()}: launches "
+                             f"{launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # each parameter's bits summed as integers: ranks that hold the same part
+    # of it must agree (a gradient left unreduced would part them)
+    checksum = {s.name: (s.data_sharded, s.inner_sharded,
+                         p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
+                         .to(torch.int64).sum().item())
+                for s, p in zip(model.sharding.shards, model.parameters())}
+    state_gib = sum(t.numel() * t.element_size() for t in
+                    [*model.parameters(), *state.ema.values(), *state.opt.mu,
+                     *state.opt.master, *[v for v in state.opt.nu if torch.is_tensor(v)]]
+                    ) / 2 ** 30
+    profile = None
+    if name in PAR_PROFILED and dist.get_rank() == 0:
+        profile = profile_device(lambda: train_step(state, batch),
+                                 os.path.join(OUT_DIR, f"profile_train_parallel_{name}.txt"),
+                                 f"1 training step, rank 0 of {world}")
+    elif name in PAR_PROFILED:  # the other ranks take the same three steps with rank 0
+        for _ in range(3):
+            train_step(state, batch)
+    torch.cuda.synchronize()
+    row = {"flags": flags, "rank": dist.get_rank(), "world": world, "mesh": mesh.shape,
+           "depth": model.depth, "local_batch": batch["x"].shape[0],
+           "params_local": sum(p.numel() for p in model.parameters()),
+           "setup_s": setup_s, "warmup_losses": [v.item() for v in warm],
+           "losses": [v.item() for v in losses], "s_per_step": loop_s / PAR_STEPS,
+           "launches": launches, "sync_debug_mode": "error",
+           "sync_exempt_collectives_per_step": exempt["count"] / PAR_STEPS,
+           "collective_ms_per_step": exempt["seconds"] * 1e3 / PAR_STEPS,
+           "peak_mem_gib": peak, "state_gib": state_gib, "profile": profile,
+           "checksum": checksum, "coords": (mesh.data_rank, mesh.axis_rank(mesh.inner))}
+    del model, state, train_step, batch
+    torch.cuda.empty_cache()
+    if depth_cut is not None:
+        del DiT_models[f"{depth_cut[0]}-depth{depth_cut[1]}"]
+    return row
+
+
+def par_full_ranks(routes):
+    """A rank's side of the full-width routes, in order."""
+    return {name: _par_full_run(name, flags, cut) for name, flags, cut in routes}
+
+
+def _par_cli_nccl():
+    """The trainer CLI's `main` in a world of one rank over NCCL (RANK=0,
+    WORLD_SIZE=1, a free local port): DiT-XL/2, 2 steps, with its final
+    checkpoint."""
+    port = _free_port()
+    results = os.path.join(OUT_DIR, "par_cli")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    try:
+        train_cli.main(train_cli.parse_args(TRAIN_ARGS + [
+            "--max-steps", "2", "--log-every", "1", "--results-dir", results]))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    (exp,) = os.listdir(results)
+    with open(os.path.join(results, exp, "log.txt")) as f:
+        log = f.read()
+    if log.count("Train Loss") != 2 or not os.path.exists(
+            os.path.join(results, exp, "checkpoints", "0000002.pt")):
+        raise AssertionError(f"the CLI over NCCL at world 1: log\n{log}")
+    shutil.rmtree(results, ignore_errors=True)
+    return {"backend": "nccl", "world": 1, "model": "DiT-XL/2", "steps": 2, "seconds": seconds,
+            "launches": launches}, launches
+
+
+def phase_train_parallel():
+    """The parallel trainer: kernels 1 and 2 at the per-rank shapes ride in
+    phases `kernel` and `kernel_bwd` (KERNEL_SHAPES, BWD_SHAPES); kernel 3
+    over an FSDP rank's sharded leaves here; the small fp32 routes against
+    one process; the full-width routes (DiT-XL/2, and the MoE at depth
+    PAR_EP_DEPTH for EP) against one process's losses; the CLI over NCCL.
+    Two ranks on one card share it: no scaling number comes from here.
+    Returns {path: launches summed over the ranks}."""
+    fu_row = _fused_update_sharded()
+    small = _par_small_checks()
+    # the one-process references of the full-width routes (same seed, batch)
+    refs = {}
+    for key, flags, cut in [("xl2", ["--fused-optimizer"], None),
+                            ("moe", ["--fused-optimizer"], (MOE_MODEL, PAR_EP_DEPTH))]:
+        base = TRAIN_ARGS if cut is None else ["--model", f"{cut[0]}-depth{cut[1]}",
+                                               *TRAIN_ARGS[2:]]
+        if cut is not None:
+            DiT_models[base[1]] = functools.partial(DiT_models[cut[0]], depth=cut[1])
+        try:
+            row, _ = _train_run(flags, warmup=PAR_WARMUP, steps=PAR_STEPS, base=base)
+        finally:
+            if cut is not None:
+                del DiT_models[base[1]]
+        refs[key] = row
+    routes = []
+    for name, flags in PAR_FULL:
+        routes.append((name, TRAIN_ARGS + flags, None))
+    ep_model = f"{MOE_MODEL}-depth{PAR_EP_DEPTH}"
+    routes.append(("ep2", ["--model", ep_model, *TRAIN_ARGS[2:], "--fused-optimizer", "--ep",
+                           "2"], (MOE_MODEL, PAR_EP_DEPTH)))
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(2, "par_full_ranks", routes=routes)
+    full_s = time.perf_counter() - t0
+    full, launches = {}, {}
+    for name, _, cut in routes:
+        rows = [r[name] for r in ranks]
+        ref = refs["moe" if cut else "xl2"]
+        rel = max(abs(a - b) / abs(b) for row in rows for a, b in zip(row["losses"],
+                                                                      ref["losses"]))
+        if not rel <= PAR_LOSS_RTOL:
+            raise AssertionError(f"train_parallel {name}: losses {rows[0]['losses']} vs one "
+                                 f"process {ref['losses']} (rel err {rel})")
+        differ = _replicas_differ(rows)
+        if differ:
+            raise AssertionError(f"train_parallel {name}: replicas differ in {differ[:5]}")
+        for r in rows:
+            del r["checksum"]
+        launches[f"train_parallel_{name}"] = dict(sum((collections.Counter(r["launches"])
+                                                       for r in rows), collections.Counter()))
+        full[name] = {"ranks": rows, "loss_rel_err_vs_one_process": rel,
+                      "one_process": {k: ref[k] for k in ("losses", "s_per_step",
+                                                          "peak_mem_gib", "params")}}
+    cli_row, launches["train_parallel_cli_nccl"] = _par_cli_nccl()
+    emit({"phase": "train_parallel", "kernel3_sharded": fu_row, "small_check": small,
+          "full": full, "full_world_s": full_s, "cli_nccl": cli_row,
+          "note": "two ranks share one card over gloo: no scaling number"})
+    return launches
+
+
+def _replicas_differ(rows):
+    """Parameters whose checksums differ between ranks that hold the same
+    part of them."""
+    differ = []
+    for pname, (data_sharded, inner_sharded, _) in rows[0]["checksum"].items():
+        groups = {}
+        for r in rows:
+            d, i = r["coords"]
+            key = (d if data_sharded else None, i if inner_sharded else None)
+            groups.setdefault(key, set()).add(r["checksum"][pname][2])
+        differ += [pname for v in groups.values() if len(v) > 1]
+    return differ
+
+
+def _fused_update_sharded():
+    """Kernel 3 against `_update_math` over the local leaves of rank 0 of
+    DiT-XL/2 under FSDP 2 (every leaf halved on its largest axis), 3 steps:
+    every element equal."""
+    from fast_dit_torch.parallel.mesh import Mesh, Sharding
+    with torch.device("meta"):
+        model = DiT_models["DiT-XL/2"](device="meta")
+        sharding = Sharding(model, Mesh(2, 1, "model", 0), fsdp=True)
+        shapes = [sharding.local(i, p).shape for i, p in enumerate(model.parameters())]
+    del model
+    g = torch.Generator(device="cuda").manual_seed(5)
+    init = [(0.02 * torch.randn(s, generator=g, device="cuda")).to(torch.bfloat16)
+            for s in shapes]
+    kp, pp = [t.clone() for t in init], [t.clone() for t in init]
+    ks, ps = fu.fused_adamw_ema_init(kp), fu.fused_adamw_ema_init(pp)
+    ke, pe = [w.clone() for w in ks.master], [w.clone() for w in ps.master]
+    hyper = dict(lr=LR, b1=0.9, b2=0.999, eps=1e-8, wd=0.0, ema_decay=0.9999)
+    for _ in range(3):
+        grads = [(0.01 * torch.randn(s, generator=g, device="cuda")).to(torch.bfloat16)
+                 for s in shapes]
+        fu.fused_adamw_ema_apply(ks, grads, kp, ke, lr=LR, weight_decay=0.0, ema_decay=0.9999)
+        fu._apply_plain(ps, grads, pp, pe, hyper)
+    torch.cuda.synchronize()
+    for what, a, b in (("param", kp, pp), ("mu", ks.mu, ps.mu), ("nu", ks.nu, ps.nu),
+                       ("master", ks.master, ps.master), ("ema", ke, pe)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"kernel 3 over FSDP-sharded leaves: {what} differs")
+    n = sum(math.prod(s) for s in shapes)
+    del kp, pp, ks, ps, ke, pe, grads, init
+    torch.cuda.empty_cache()
+    return {"model": "DiT-XL/2, FSDP 2, rank 0", "leaves": len(shapes), "elements": n,
+            "steps": 3, "max_abs_err": 0.0, "equal": True}
+
+
 def _dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
@@ -2207,6 +2691,7 @@ def main():
     train_launches = phase_train(a.profile)
     moe_launches = phase_moe(a.steps, option_root)
     phase_resume()
+    parallel_launches = phase_train_parallel()
     ring_fwd = phase_ring_kernel()
     ring_bwd = phase_ring_kernel_bwd()
     seq_table = None
@@ -2217,7 +2702,8 @@ def main():
     paths = {"sample": sample_launches,
              **{f"samplers_{c}": n for c, n in sampler_launches.items()},
              **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
-             **moe_launches, "seq_sample": seq_sample_launches, "seq_grad": seq_grad_launches}
+             **moe_launches, **parallel_launches, "seq_sample": seq_sample_launches,
+             "seq_grad": seq_grad_launches}
     by_path = {k: {path: n.get(k, 0) for path, n in paths.items()} for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):

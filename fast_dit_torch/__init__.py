@@ -27,7 +27,12 @@ the loss-aware timestep sampler (`diffusion/timestep_samplers.py`), wired
 into both sampler CLIs and the trainer. Slice 10 adds JAX's last model
 options: the DiT-MoE family with its routing aux losses (`models/moe.py`),
 token merging (`ops/tome.py`), W8A8 int8 sampling (`ops/quant.py`), and the
-binding to the C++ feature loader (`data/native_loader.py`).
+binding to the C++ feature loader (`data/native_loader.py`). Slice 11 runs
+the trainer on a mesh of ranks (`torchrun ... -m fast_dit_torch.train`):
+data parallelism, FSDP, tensor and expert parallelism with JAX's sharding
+rules (`parallel/mesh.py`, `parallel/collectives.py`, `utils/platform.py`),
+one-file checkpoints gathered from and cut back to the ranks, and the
+sampler CLIs' `--ckpt` resolution (`ckpt/download.py`).
 """
 
 __version__ = "0.1.0"

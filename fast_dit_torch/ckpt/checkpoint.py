@@ -21,6 +21,16 @@ count, mu, master and nu (fp32 or bf16 tensors, and each factored JAX
 leaf's row and col under its flax path). `restore` loads a file into a
 train state built the same way, in place, and raises if the file holds
 another route or another kind of nu.
+
+On a mesh (the model sharded by `parallel.mesh.shard_params`) the file is
+the same: full tensors, whatever the world size. `save` must then be called
+on every rank: each tensor of the state is gathered from the ranks' parts
+one at a time (`Sharding.gather_full`), rank 0 copies it to the host and
+alone writes the file, so the whole tree is never gathered on a card.
+`restore` reads the file on every rank and keeps each rank's part, so a
+file written by any world resumes in any other. The generator and the
+loss-second-moment buffers are equal on every rank (each draws the global
+batch's draws), so rank 0's are the global ones.
 """
 
 from __future__ import annotations
@@ -28,9 +38,10 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..diffusion.timestep_samplers import LossSecondMomentState
 from ..ops.fused_update import FactoredNu, FusedAdamWEmaState, nu_kind
@@ -63,8 +74,67 @@ def _opt_tree(opt) -> dict:
     return tree
 
 
+def _map_tree(tree: dict, names: List[str], param: Callable, factored: Callable) -> dict:
+    """`tree` (`checkpoint_tree`'s layout) with `param(i, t)` applied to every
+    tensor shaped like parameter i and `factored(leaf path, which, t)` to
+    every factored row and col, in one fixed order on every rank."""
+    index = {n: i for i, n in enumerate(names)}
+    out = dict(tree)
+    out["model"] = {k: param(index[k], v) if k in index else v for k, v in tree["model"].items()}
+    out["ema"] = {k: param(index[k], v) if k in index else v for k, v in tree["ema"].items()}
+    opt = dict(tree["opt"])
+    for key in ("mu", "master", "nu"):
+        if key in opt:
+            opt[key] = [None if v is None else param(i, v) for i, v in enumerate(opt[key])]
+    if "factored" in opt:
+        opt["factored"] = {path: {w: factored(path, w, v[w]) for w in ("row", "col")}
+                           for path, v in opt["factored"].items()}
+    for key in ("state_dict", "inner"):
+        if key in opt:
+            sd = dict(opt[key])
+            sd["state"] = {i: {k: param(i, v) if torch.is_tensor(v) and v.dim() else v
+                               for k, v in st.items()} for i, st in sd["state"].items()}
+            opt[key] = sd
+    out["opt"] = opt
+    return out
+
+
+def _gathered(tree: dict, state) -> Optional[dict]:
+    """The full tree on rank 0 (host tensors), None on the other ranks."""
+    sharding = state.model.sharding
+    leaves = {leaf.path: leaf for leaf in sharding.leaves}
+    keep = sharding.mesh.rank == 0
+
+    def param(i, t):
+        t = sharding.gather_full(i, t)
+        return t.cpu() if keep else None
+
+    def factored(path, which, t):
+        t = sharding.factored_full(leaves[path], t, which)
+        return t.cpu() if keep else None
+
+    names = [n for n, _ in state.model.named_parameters()]
+    full = _map_tree(tree, names, param, factored)
+    return full if keep else None
+
+
+def _localized(tree: dict, state) -> dict:
+    """A full tree cut to this rank's parts."""
+    sharding = state.model.sharding
+    leaves = {leaf.path: leaf for leaf in sharding.leaves}
+    names = [n for n, _ in state.model.named_parameters()]
+    return _map_tree(tree, names, sharding.local,
+                     lambda path, which, t: sharding.factored_local(leaves[path], t, which))
+
+
+def _sharded(state) -> bool:
+    sharding = getattr(state.model, "sharding", None)
+    return sharding is not None and sharding.mesh.size > 1
+
+
 def checkpoint_tree(state, args=None) -> dict:
-    """The file's contents for a train state (`train.train_lib.TrainState`)."""
+    """The file's contents for a train state (`train.train_lib.TrainState`);
+    on a mesh, gathered: the tree on rank 0, None on the others."""
     model_sd = {k: v.detach().float() for k, v in state.model.state_dict().items()}
     ema_sd = {**model_sd, **state.ema}  # the frozen buffers, then the EMA weights
     master = get_master_params(state.opt)
@@ -72,12 +142,13 @@ def checkpoint_tree(state, args=None) -> dict:
         names = [n for n, _ in state.model.named_parameters()]
         model_sd.update(dict(zip(names, master)))
     sampler = state.sampler_state
-    return {"model": model_sd, "ema": ema_sd, "opt": _opt_tree(state.opt),
+    tree = {"model": model_sd, "ema": ema_sd, "opt": _opt_tree(state.opt),
             "args": args, "step": state.step,
             "sampler": (None if not isinstance(sampler, LossSecondMomentState) else
                         {"loss_history": sampler.loss_history,
                          "loss_counts": sampler.loss_counts}),
             "rng": None if state.generator is None else state.generator.get_state()}
+    return _gathered(tree, state) if _sharded(state) else tree
 
 
 @torch.no_grad()
@@ -93,8 +164,11 @@ def _copy_list(dst: List[torch.Tensor], src: List[torch.Tensor], what: str) -> N
 
 @torch.no_grad()
 def load_into(state, tree: dict) -> None:
-    """Restore `tree` (`checkpoint_tree`'s layout) into `state`, in place:
-    weights, EMA, optimizer, step, timestep-sampler state and generator."""
+    """Restore `tree` (`checkpoint_tree`'s layout, full tensors) into
+    `state`, in place: weights, EMA, optimizer, step, timestep-sampler state
+    and generator; on a mesh, each rank's part."""
+    if _sharded(state):
+        tree = _localized(tree, state)
     opt, saved = state.opt, tree["opt"]
     if saved["route"] != _route(opt):
         raise ValueError(f"the checkpoint holds the {saved['route']!r} optimizer state; this "
@@ -139,7 +213,8 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None):
         self.directory = directory
         self.max_to_keep = max_to_keep
-        os.makedirs(directory, exist_ok=True)
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+            os.makedirs(directory, exist_ok=True)
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step:07d}.pt")
@@ -153,10 +228,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state, args=None) -> str:
-        """Write `state` at `step`; returns the file's path."""
+        """Write `state` at `step`; returns the file's path. On a mesh every
+        rank calls it and rank 0 writes."""
         path = self.path(step)
+        tree = checkpoint_tree(state, args)
+        if tree is None:
+            return path
         tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(checkpoint_tree(state, args), tmp)
+        torch.save(tree, tmp)
         os.replace(tmp, path)
         if self.max_to_keep is not None:
             for old in self.all_steps()[:-self.max_to_keep]:

@@ -7,7 +7,8 @@ full history, draws t with probability proportional to sqrt(E[loss^2])
 (mixed with `uniform_prob` of the uniform distribution). As in JAX the
 states are immutable: `update_with_losses` returns a new one.
 
-Two differences from JAX, both held by `tests/test_torch_timestep_samplers.py`:
+Two differences from JAX, both held by `tests/test_torch_timestep_samplers.py`,
+and one addition:
 - `sample_timesteps` draws with `torch.multinomial` from an explicit
   generator, a different stream from `jax.random.choice`; the tests inject t
   and the weights.
@@ -15,6 +16,11 @@ Two differences from JAX, both held by `tests/test_torch_timestep_samplers.py`:
   (rank within equal t, then one scatter) instead of JAX's sequential scan;
   the result is the same ring buffer, repeated timesteps and wrap included,
   and nothing waits for the device.
+- In a world of ranks the trainer passes `update_with_losses` the global
+  batch's (t, loss) pairs in global order (t drawn for the global batch,
+  the losses all-gathered over the data group, `train/train_lib.py`), as
+  the reference gathers them (`timestep_sampler.py:97-98`), so every rank
+  keeps the same buffers.
 """
 
 from __future__ import annotations

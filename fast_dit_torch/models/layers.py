@@ -28,6 +28,16 @@ The block's options, as in JAX (`layers.py:155-208, 394-463`):
   tokens, its output unmerged to N.
 - `moe_experts > 0`: the MLP is a routed `MoeMlp` (`models/moe.py`), whose
   aux values the block returns beside its output (`forward_aux`).
+
+The parallel trainer (`parallel/mesh.py shard_params`) reads every
+parameter through `collectives.full`, which gathers an FSDP shard where it
+is used, and gives `Attention` and `Mlp` a `tp_group` under tensor
+parallelism: each rank then holds H/m heads of qkv and the matching input
+columns of proj, fc1's output rows and fc2's input columns, and Megatron's
+pair of functions carries the collectives, `copy_to_group` at the input of
+qkv and fc1 (its backward sums the input's gradient over the group) and
+`reduce_from_group` after proj and fc2, whose bias is added once, after the
+sum. Everything else is replicated.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import RING, attention_qkv, resolve_backend
 from ..ops.quant import QUANT_MODES, int8_matmul, quantize_cols
 from ..ops.tome import bipartite_soft_matching_2d
+from ..parallel.collectives import copy_to_group, full, reduce_from_group
 from .moe import MoeMlp
 
 __all__ = [
@@ -75,10 +86,17 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
         dt = self.dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        b = None if self.bias is None or not bias else full(self.bias).to(dt)
+        return F.linear(x.to(dt), full(self.weight).to(dt), b)
+
+
+def _row_parallel(linear: Linear, x, group):
+    """A row-parallel `linear`: the ranks' partial products summed over the
+    group, then the bias, once."""
+    y = reduce_from_group(linear(x, bias=False), group)
+    return y + full(linear.bias).to(y.dtype)
 
 
 class QuantLinear(Linear):
@@ -137,8 +155,9 @@ class PatchEmbed(nn.Module):
         gh, gw = H // p, W // p
         x = x.reshape(B, C, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
         x = x.reshape(B, gh * gw, C * p * p)
-        w = self.proj.weight.reshape(self.proj.weight.shape[0], -1)
-        return F.linear(x.to(self.dtype), w.to(self.dtype), self.proj.bias.to(self.dtype))
+        w = full(self.proj.weight)
+        w = w.reshape(w.shape[0], -1)
+        return F.linear(x.to(self.dtype), w.to(self.dtype), full(self.proj.bias).to(self.dtype))
 
 
 class TimestepEmbedder(nn.Module):
@@ -197,7 +216,7 @@ class LabelEmbedder(nn.Module):
     def forward(self, labels, train=False, force_drop_ids=None, generator=None):
         if (train and self.dropout_prob > 0) or force_drop_ids is not None:
             labels = self.token_drop(labels, generator, force_drop_ids)
-        return self.embedding_table(labels)
+        return F.embedding(labels, full(self.embedding_table.weight))
 
 
 class Attention(nn.Module):
@@ -208,8 +227,9 @@ class Attention(nn.Module):
         super().__init__()
         assert dim % num_heads == 0
         self.dtype = dtype
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads under tensor parallelism
         self.attn_backend = resolve_backend(attn_backend)
+        self.tp_group = None
         linear = QuantLinear if quant else Linear
         self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
         self.proj = linear(dim, dim, dtype=dtype)
@@ -217,10 +237,12 @@ class Attention(nn.Module):
     def forward(self, x, ring=None):
         """With `ring`, x is a token shard and attention runs around the ring
         (the "ring" backend) in place of the model's dense backend."""
-        qkv = self.qkv(x)  # (B, N, 3D): columns in (3, H, hd) order
+        qkv = self.qkv(copy_to_group(x, self.tp_group))  # columns in (3, H, hd) order
         backend = RING if ring is not None else self.attn_backend
         out = attention_qkv(qkv, self.num_heads, backend=backend, ring=ring)
-        return self.proj(out)
+        if self.tp_group is None:
+            return self.proj(out)
+        return _row_parallel(self.proj, out, self.tp_group)
 
 
 class Mlp(nn.Module):
@@ -229,12 +251,15 @@ class Mlp(nn.Module):
     def __init__(self, in_features, hidden_features, dtype=torch.float32, quant=None):
         super().__init__()
         self.dtype = dtype
+        self.tp_group = None
         linear = QuantLinear if quant else Linear
         self.fc1 = linear(in_features, hidden_features, dtype=dtype)
         self.fc2 = linear(hidden_features, in_features, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(copy_to_group(x, self.tp_group)), approximate="tanh")
+        return self.fc2(h) if self.tp_group is None else _row_parallel(self.fc2, h,
+                                                                        self.tp_group)
 
 
 class DiTBlock(nn.Module):

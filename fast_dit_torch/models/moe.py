@@ -30,6 +30,21 @@ runs again in the backward neither counts them twice nor loses their graph.
 Parameter names: `router.weight` (E, D), the flax (D, E) kernel
 transposed, as any `nn.Linear`; `wi`, `bi`, `wo`, `bo` in JAX's per-block
 layout (`ckpt/convert.py`).
+
+Expert parallelism (`parallel/mesh.py shard_params` sets `ep_group` and
+`expert_offset`): a rank holds the experts [offset, offset + E/m) of `wi`,
+`bi`, `wo` and `bo`. The batch is replicated over the group, so every rank
+routes the same tokens and keeps the same slots; each computes its own
+experts' buffers, and the combine is a sum over the group: the input of the
+dispatch and the combine weights pass `copy_to_group` (their gradients are
+summed over the group, so the router's comes out whole and equal on every
+rank) and the combined output `reduce_from_group`. With the tokens
+replicated no all-to-all is needed. Under data parallelism (`data_group`)
+the aux values are JAX's global ones: f and p are means over the global
+batch, so each is averaged over the data group before their product (the
+mean of per-rank products is another number), and so are the z-loss and
+the dropped share (`collectives.mean_over_group`). The capacity is per
+batch row and stays local.
 """
 
 from __future__ import annotations
@@ -40,6 +55,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import copy_to_group, full, mean_over_group, reduce_from_group
 
 __all__ = ["MoeMlp", "Routing", "expert_capacity", "top_k_gates", "AUX_NAMES"]
 
@@ -97,6 +114,9 @@ class MoeMlp(nn.Module):
         self.capacity_factor = capacity_factor
         self.dtype = dtype
         E, H = num_experts, hidden_features
+        self.ep_group = None      # the expert group, under expert parallelism
+        self.expert_offset = 0    # the first of this rank's experts
+        self.data_group = None    # the data group, for the global aux values
         self.router = nn.Linear(dim, E, bias=False)
         self.wi = nn.Parameter(torch.zeros(E, dim, H))
         self.bi = nn.Parameter(torch.zeros(E, H))
@@ -117,7 +137,7 @@ class MoeMlp(nn.Module):
     def route(self, x: torch.Tensor) -> Routing:
         B, S, _ = x.shape
         E, k = self.num_experts, self.top_k
-        logits = F.linear(x.float(), self.router.weight.float())  # (B, S, E), fp32
+        logits = F.linear(x.float(), full(self.router.weight).float())  # (B, S, E), fp32
         gates = torch.softmax(logits, dim=-1)
         idx, topg = top_k_gates(gates, k)                          # (B, S, k)
         topg = topg / torch.clamp(topg.sum(dim=-1, keepdim=True), min=1e-9)
@@ -134,30 +154,40 @@ class MoeMlp(nn.Module):
         E, k = self.num_experts, self.top_k
         dt = self.dtype
         logits, gates, idx, topg, choice, pos, keep, C = self.route(x)
-        # buffer row (e, b, c) of each kept slot; a dropped slot points at
-        # the extra last row, which is never read
-        rows = E * B * C
+        wi, bi, wo, bo = (full(t) for t in (self.wi, self.bi, self.wo, self.bo))
+        El, e0, group = wi.shape[0], self.expert_offset, self.ep_group  # this rank's experts
+        # buffer row (e, b, c) of each kept slot of this rank's experts; any
+        # other slot points at the extra last row, which is never read
+        rows = El * B * C
+        mine = keep & (choice >= e0) & (choice < e0 + El)
         b_idx = torch.arange(B, device=x.device)[:, None]
-        dest = torch.where(keep, (choice * B + b_idx) * C + pos, rows)   # (B, kS)
+        dest = torch.where(mine, ((choice - e0) * B + b_idx) * C + pos, rows)   # (B, kS)
         token = b_idx * S + torch.arange(k * S, device=x.device) % S     # source token
         src = torch.full((rows + 1,), B * S, dtype=torch.long, device=x.device)
         src.scatter_(0, dest.reshape(-1), token.reshape(-1))
-        x_rows = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])  # last: a zero row
-        xe = x_rows.index_select(0, src[:rows]).reshape(E, B * C, D)
+        xd = copy_to_group(x, group)
+        x_rows = torch.cat([xd.reshape(B * S, D), xd.new_zeros(1, D)])  # last: a zero row
+        xe = x_rows.index_select(0, src[:rows]).reshape(El, B * C, D)
 
-        h = torch.baddbmm(self.bi.to(dt)[:, None, :], xe.to(dt), self.wi.to(dt))
+        h = torch.baddbmm(bi.to(dt)[:, None, :], xe.to(dt), wi.to(dt))
         h = F.gelu(h, approximate="tanh")
-        ye = torch.baddbmm(self.bo.to(dt)[:, None, :], h, self.wo.to(dt))
+        ye = torch.baddbmm(bo.to(dt)[:, None, :], h, wo.to(dt))
         ye = torch.cat([ye.reshape(rows, D), ye.new_zeros(1, D)])
-        # combine: each choice's expert output, weighted by its gate
+        # combine: each choice's expert output, weighted by its gate (another
+        # rank's slot reads the zero row)
         w = torch.where(keep, topg.transpose(1, 2).reshape(B, k * S), 0.0).to(dt)
+        w = copy_to_group(w, group)
         yk = ye.index_select(0, dest.reshape(-1)).reshape(B, k, S, D)
-        y = (w.reshape(B, k, S, 1) * yk).sum(dim=1).to(x.dtype)
+        y = reduce_from_group((w.reshape(B, k, S, 1) * yk).sum(dim=1), group).to(x.dtype)
 
-        # aux values: f_e from the top-1 choice, p_e the mean gate
+        # aux values over the global batch: f_e from the top-1 choice, p_e
+        # the mean gate
         f = (idx[..., 0:1] == torch.arange(E, device=x.device)).float().mean(dim=(0, 1))
         p = gates.mean(dim=(0, 1))
         z = torch.logsumexp(logits, dim=-1)
         dropped = 1.0 - keep.float().sum() / (B * S * k)
-        aux = torch.stack([E * (f * p).sum(), (z * z).mean(), dropped])
-        return y, aux
+        # one collective for the four: f, p, the z-loss and the dropped share
+        stats = mean_over_group(torch.cat([f, p, (z * z).mean()[None], dropped[None]]),
+                                self.data_group)
+        f, p = stats[:E], stats[E:2 * E]
+        return y, torch.stack([E * (f * p).sum(), stats[2 * E], stats[2 * E + 1]])

@@ -21,6 +21,15 @@ tensor is seen in flax's layout (`ckpt.convert.jax_leaves`: (D, 3, H, hd)
 for qkv, (H, hd, D) for proj, (in, out) for a Dense), so row and col have
 JAX's shapes and the same tensors decide what is factored.
 
+Under a mesh (`parallel/mesh.py`) every tensor of the state is the rank's
+local part of the parameter's, so the kernel and the dense plain update run
+on local shards unchanged (they are elementwise). A factored leaf keeps the
+rank's part of row and col (`FactoredSplit`: JAX replicates them, but each
+rank needs only its own), and a mean over an axis that the mesh splits is a
+sum over the local part, all-reduced over that axis's group, over the full
+length. A rank that holds none of a block's tensor (an FSDP spec on the
+layer axis) has an empty tensor there, which the update skips.
+
 JAX returns new arrays; here the state, the EMA and the parameters are
 updated in place, as the TPU kernel's input/output aliases do (:174). On
 CPU tensors each leaf goes through `_update_math` (`_apply_plain`); on CUDA
@@ -64,6 +73,18 @@ def _factorable(shape) -> bool:
 
 
 @dataclasses.dataclass
+class FactoredSplit:
+    """How a factored leaf is split over a mesh: the flax layout maps of
+    each member's local tensor (`maps`: param index -> (to_jax, from_jax)),
+    the process group of each split axis of the stacked leaf (`groups`) and
+    the leaf's full shape."""
+
+    maps: dict
+    groups: dict
+    full_shape: tuple
+
+
+@dataclasses.dataclass
 class FactoredNu:
     """Adafactor-style factored second moment of one leaf of JAX's tree:
     running means of g^2 over its last axis (`row`) and its second-to-last
@@ -74,6 +95,7 @@ class FactoredNu:
     row: torch.Tensor  # (..., R) fp32
     col: torch.Tensor  # (..., C) fp32
     leaf: Any
+    split: Optional[FactoredSplit] = None
 
 
 @dataclasses.dataclass
@@ -95,12 +117,14 @@ def nu_kind(state: FusedAdamWEmaState) -> str:
 
 
 def fused_adamw_ema_init(params, mu_dtype=torch.bfloat16, nu_dtype=torch.float32,
-                         factored: bool = False,
-                         leaves: Optional[Sequence] = None) -> FusedAdamWEmaState:
+                         factored: bool = False, leaves: Optional[Sequence] = None,
+                         sharding=None) -> FusedAdamWEmaState:
     """Zero moments and an fp32 master copy of `params` (a list of tensors).
     `nu_dtype` bf16 halves the dense second moment. `factored` replaces it
     by a `FactoredNu` for every factorable leaf of JAX's tree; `leaves`
-    (`ckpt.convert.jax_leaves(model)`) says what those are."""
+    (`ckpt.convert.jax_leaves(model)`) says what those are, and `sharding`
+    (`parallel.mesh.Sharding`), where the parameters are local parts, how
+    each leaf is split."""
     params = list(params)
     nu: List[Any] = [None] * len(params)
     if factored:
@@ -108,11 +132,21 @@ def fused_adamw_ema_init(params, mu_dtype=torch.bfloat16, nu_dtype=torch.float32
             raise ValueError("factored=True needs the model's JAX leaves "
                              "(ckpt.convert.jax_leaves)")
         for leaf in leaves:
-            if _factorable(leaf.shape):
+            if _factorable(leaf.shape):  # JAX's choice, on the full leaf
                 dev = params[leaf.members[0]].device
-                fnu = FactoredNu(row=torch.zeros(leaf.shape[:-1], device=dev),
-                                 col=torch.zeros(leaf.shape[:-2] + leaf.shape[-1:], device=dev),
-                                 leaf=leaf)
+                row = torch.zeros(leaf.shape[:-1], device=dev)
+                col = torch.zeros(leaf.shape[:-2] + leaf.shape[-1:], device=dev)
+                split = None
+                if sharding is not None and sharding.leaf_axes(leaf):
+                    row = sharding.factored_local(leaf, row, "row")
+                    col = sharding.factored_local(leaf, col, "col")
+                    split = FactoredSplit(
+                        maps={i: (sharding.shards[i].to_jax, sharding.shards[i].from_jax)
+                              for i in leaf.members},
+                        groups={ax: sharding.mesh.group(name)
+                                for ax, name in sharding.leaf_axes(leaf).items()},
+                        full_shape=tuple(leaf.shape))
+                fnu = FactoredNu(row=row, col=col, leaf=leaf, split=split)
                 for i in leaf.members:
                     nu[i] = fnu
     nu = [torch.zeros(p.shape, dtype=nu_dtype, device=p.device) if v is None else v
@@ -148,22 +182,44 @@ def _update_math(g, m, v, w, e, bc1, bc2, *, lr, b1, b2, eps, wd, ema_decay,
     return w_new.to(p_dtype), m_new, v_new, w_new, e_new
 
 
+def _members(fnu: FactoredNu, tensors) -> List[int]:
+    """The leaf's members this rank holds (all of them, unless the layer
+    axis is split)."""
+    return [i for i in fnu.leaf.members if tensors[i].numel()]
+
+
+def _mean(t: torch.Tensor, leaf_axis: int, dim: int, split: Optional[FactoredSplit],
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of `t` over `dim`, which is the leaf's axis `leaf_axis`: a
+    local mean, or, where the mesh splits that axis, the local sum summed
+    over the axis's group over the full length."""
+    if split is None or leaf_axis not in split.groups:
+        return t.mean(dim=dim, keepdim=keepdim)
+    from ..parallel.collectives import all_reduce  # noqa: PLC0415
+    return all_reduce(t.sum(dim=dim, keepdim=keepdim), split.groups[leaf_axis]) / (
+        split.full_shape[leaf_axis])
+
+
 def _factored_vhat(fnu: FactoredNu, grads, b2, bc2):
     """`_update_math_factored`'s second moment for one JAX leaf: the new
     (row, col) from the stacked g^2 in flax's layout, and vhat per port
-    tensor, in the port's layout."""
-    leaf = fnu.leaf
-    g2 = torch.stack([leaf.to_jax(grads[i]).float() for i in leaf.members])
+    tensor this rank holds, in the port's layout."""
+    leaf, split = fnu.leaf, fnu.split
+    members = _members(fnu, grads)
+    to_jax = (lambda i: leaf.to_jax) if split is None else (lambda i: split.maps[i][0])
+    from_jax = leaf.from_jax if split is None else split.maps[leaf.members[0]][1]
+    g2 = torch.stack([to_jax(i)(grads[i]).float() for i in members])
     if not leaf.stacked:
         g2 = g2[0]
     g2 = g2 * g2
-    row = b2 * fnu.row + (1.0 - b2) * g2.mean(dim=-1)
-    col = b2 * fnu.col + (1.0 - b2) * g2.mean(dim=-2)
-    norm = torch.clamp(row.mean(dim=-1, keepdim=True), min=1e-30)
+    nd = g2.dim()
+    row = b2 * fnu.row + (1.0 - b2) * _mean(g2, nd - 1, -1, split)
+    col = b2 * fnu.col + (1.0 - b2) * _mean(g2, nd - 2, -2, split)
+    norm = torch.clamp(_mean(row, nd - 2, -1, split, keepdim=True), min=1e-30)
     vhat = (row / norm)[..., :, None] * col[..., None, :] * bc2
     if not leaf.stacked:
-        return row, col, [leaf.from_jax(vhat)]
-    return row, col, [leaf.from_jax(vhat[k]) for k in range(len(leaf.members))]
+        return row, col, [from_jax(vhat)]
+    return row, col, [from_jax(vhat[k]) for k in range(len(members))]
 
 
 def _update_math_factored(g, m, vhat, w, e, bc1, *, lr, b1, eps, wd, ema_decay, mu_dtype,
@@ -181,7 +237,7 @@ def _update_math_factored(g, m, vhat, w, e, bc1, *, lr, b1, eps, wd, ema_decay, 
 def _apply_factored(fnu: FactoredNu, grads, params, state, ema, bc1, bc2, hyper) -> None:
     """One JAX leaf with a factored nu, in stock torch ops on any device."""
     row, col, vhats = _factored_vhat(fnu, grads, hyper["b2"], bc2)
-    for i, vhat in zip(fnu.leaf.members, vhats):
+    for i, vhat in zip(_members(fnu, grads), vhats):
         outs = _update_math_factored(
             grads[i], state.mu[i], vhat, state.master[i], ema[i], bc1,
             lr=hyper["lr"], b1=hyper["b1"], eps=hyper["eps"], wd=hyper["wd"],
@@ -242,6 +298,8 @@ def _apply_plain(state: FusedAdamWEmaState, grads, params, ema, hyper: dict) -> 
             if i == v.leaf.members[0]:
                 _apply_factored(v, grads, params, state, ema, bc1, bc2, hyper)
             continue
+        if not p.numel():
+            continue
         outs = _update_math(g, m, v, w, e, bc1, bc2, mu_dtype=m.dtype, p_dtype=p.dtype,
                             **hyper)
         for dst, src in zip((p, m, v, w, e), outs):
@@ -269,5 +327,7 @@ def fused_adamw_ema_apply(state: FusedAdamWEmaState, grads, params, ema, *, lr: 
             if i == v.leaf.members[0]:
                 # host floats: a CPU tensor moved to the card would sync
                 _apply_factored(v, grads, params, state, ema, bc1.item(), bc2.item(), hyper)
+            continue
+        if not p.numel():
             continue
         _launch(g, p, m, v, w, e, bc1.item(), bc2.item(), hyper)

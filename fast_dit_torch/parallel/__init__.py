@@ -1,7 +1,17 @@
-"""Parallelism: sequence (context) parallelism over a ring of token shards."""
+"""Parallelism: sequence (context) parallelism over a ring of token shards;
+meshes of ranks with JAX's DiT sharding rules (data parallelism, FSDP,
+tensor and expert parallelism, `mesh.py`) and the collectives they use
+(`collectives.py`)."""
 
+from .collectives import (all_gather, all_reduce, broadcast, copy_to_group, full,
+                          reduce_from_group, reduce_scatter)
+from .mesh import (Mesh, Sharding, batch_rows, create_expert_mesh, create_mesh, dit_param_spec,
+                   param_shardings, shard_params)
 from .sequence import (LocalRing, ProcessGroupRing, create_seq_groups,
                        dit_sequence_parallel_forward, sequence_parallel_stack)
 
 __all__ = ["LocalRing", "ProcessGroupRing", "create_seq_groups",
-           "dit_sequence_parallel_forward", "sequence_parallel_stack"]
+           "dit_sequence_parallel_forward", "sequence_parallel_stack", "Mesh", "Sharding",
+           "create_mesh", "create_expert_mesh", "dit_param_spec", "param_shardings",
+           "shard_params", "batch_rows", "all_reduce", "all_gather", "reduce_scatter",
+           "broadcast", "copy_to_group", "reduce_from_group", "full"]

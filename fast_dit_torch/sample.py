@@ -24,10 +24,13 @@ latents go to `sample.npy` and a latent preview to `sample.png`, as
 `sample.py` does. The decode is fp32 with TF32 off, as the JAX VAE
 computes.
 
-Weights: a local reference-format `.pt` (`--ckpt PATH`; nothing is ever
-downloaded) or `--ckpt random`: the seeded init plus a 0.02 N(0, 1)
-perturbation of every parameter, since the zero-initialised heads would
-otherwise make every output zero.
+Weights (`ckpt.download.find_model`, the EMA where there is one): a local
+reference-format `.pt` (`--ckpt PATH`); a trainer's `checkpoints/` folder
+(`--ckpt DIR`: its latest step); the two known names, the default
+`DiT-XL-2-{size}x{size}.pt` among them, under `pretrained_models/`; or
+`--ckpt random`: the seeded init plus a 0.02 N(0, 1) perturbation of every
+parameter, since the zero-initialised heads would otherwise make every
+output zero. Nothing is ever downloaded.
 
 `--tome-ratio R` merges that fraction of the tokens inside every block's
 attention (`ops/tome.py`; `--tome-mlp` also its MLP), `--quantize w8a8`
@@ -47,7 +50,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .ckpt import load_torch_checkpoint, load_vae, resolve_vae_path
+from .ckpt import find_model, load_vae, resolve_vae_path
 from .diffusion import (create_diffusion, flow_sample_loop, guidance_interval_cached_fns,
                         guidance_interval_fn)
 from .models import DiT_models, decode_from_latents
@@ -95,8 +98,8 @@ def build_model(args, device, seed):
     """The DiT of `args` (--model, --image-size, --num-classes, --bf16,
     --attn-backend, --quantize, --tome-ratio, --tome-mlp, --ckpt; a flow
     --sampler means no learned-sigma channels) on `device`, in eval mode,
-    weights loaded; `--ckpt random` is the init from `seed` plus
-    `perturb_`."""
+    weights loaded through `find_model`; `--ckpt random` is the init from
+    `seed` plus `perturb_`."""
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
         learn_sigma=args.sampler not in FLOW_SAMPLERS,
@@ -106,12 +109,8 @@ def build_model(args, device, seed):
     if args.ckpt == "random":
         perturb_(model)
     else:
-        path = args.ckpt or f"DiT-XL-2-{args.image_size}x{args.image_size}.pt"
-        if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f"no checkpoint at {path!r}: the port loads local reference .pt "
-                f"files only and never downloads; pass --ckpt PATH or --ckpt random")
-        model.load_state_dict(load_torch_checkpoint(path), strict=True)
+        name = args.ckpt or f"DiT-XL-2-{args.image_size}x{args.image_size}.pt"
+        model.load_state_dict(find_model(name), strict=True)
     return model.eval()
 
 
@@ -290,7 +289,9 @@ def parse_args(argv=None):
     parser.add_argument("--num-sampling-steps", type=int, default=250)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="local reference .pt checkpoint, or 'random'")
+                        help="local reference .pt file, a trainer's checkpoints/ folder, a "
+                             "known name under pretrained_models/ (never downloaded), or "
+                             "'random'")
     parser.add_argument("--vae-ckpt", type=str, default=None,
                         help="local diffusers-format SD-VAE weights (file or directory)")
     # the port's own

@@ -195,7 +195,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tf32", action=argparse.BooleanOptionalAction, default=True,
                         help="TF32 matmuls and convolutions on the card")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="local reference .pt checkpoint (default "
+                        help="local reference .pt file, a trainer's checkpoints/ folder, or a "
+                             "known name under pretrained_models/ (default "
                              "DiT-XL-2-{size}x{size}.pt; never downloaded), or 'random'")
     # the JAX harness's extensions
     parser.add_argument("--vae-ckpt", type=str, default=None,

@@ -2,6 +2,7 @@
 
     python -m fast_dit_torch.train --synthetic-data --model DiT-XL/2 --global-batch-size 32
     python -m fast_dit_torch.train --device cpu --synthetic-data --model DiT-S/2 --max-steps 2
+    torchrun --nproc_per_node 8 -m fast_dit_torch.train --fsdp --tp 2 --model DiT-XL/2
 
 Counterpart of the repository's `train.py`, with its flags (`:252-335`) and
 its log line "(step=...) Train Loss: ..., Train Steps/Sec: ...". Defaults
@@ -31,43 +32,69 @@ continues the step count; as in JAX (`train.py:126-156`), the data
 iterator starts again at epoch 0 and no batch is skipped. Runs on the card
 unless `--device cpu` is given.
 
-Not ported yet, refused with a message: `--tp`, `--fsdp` and `--ep`.
-`--scan-unroll` is accepted and has no effect (the blocks are a Python
-loop, not a scan).
+Under `torchrun` (RANK, WORLD_SIZE, LOCAL_RANK: one rank per card, NCCL;
+gloo with `--device cpu`) the trainer runs on a mesh of the ranks, as
+`train.py:56-82` does: `--tp N` makes a ('data', 'model') mesh and splits
+the blocks' attention heads and MLP width over N ranks, `--ep N` a ('data',
+'expert') mesh that splits a DiT-MoE model's experts, `--fsdp` shards every
+parameter and its optimizer state over the data axis
+(`parallel/mesh.py`); the data axis has world / max(tp, ep) ranks, and
+the global batch must split over data x grad_accum. Each rank reads its data
+index's rows (the loaders' process index and count are the data rank and
+size; synthetic latents are the global batch's rows). Rank 0 alone makes
+the experiment directory, logs to files and writes the checkpoints (every
+rank takes part in gathering them); a SIGTERM on any rank stops every rank
+at the same step boundary, through a flag all-reduced on a gloo group of
+its own. `--export-pt` is skipped in a world of more than one, with JAX's
+warning. `--scan-unroll` is accepted and has no effect (the blocks are a
+Python loop, not a scan).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
 from ..data import FeatureDataset, NativeFeatureLoader, feature_batches, synthetic_features
 from ..diffusion import create_diffusion, create_named_schedule_sampler
 from ..models import REMAT_POLICIES, DiT_models
 from ..ops.attention import BACKENDS
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import batch_rows, create_expert_mesh, create_mesh, shard_params
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger, find_latest_experiment_dir, make_experiment_dir
-from .train_lib import create_train_state, ema_state_dict, make_train_step
+from ..utils.platform import broadcast_string, destroy_distributed, maybe_initialize_distributed
+from .train_lib import create_train_state, ema_state_dict, make_sharded_train_step
 
-__all__ = ["parse_args", "check_args", "build", "device_batches", "main"]
+__all__ = ["parse_args", "check_args", "make_mesh", "build", "device_batches", "main"]
 
 
-def check_args(args) -> None:
-    """Raise SystemExit with a message for what the port does not run yet."""
-    refused = {
-        "--tp > 1": args.tp > 1,
-        "--fsdp": args.fsdp,
-        "--ep > 1": args.ep > 1,
-    }
-    bad = [flag for flag, on in refused.items() if on]
-    if bad:
-        raise SystemExit(f"fast_dit_torch.train: {', '.join(bad)} not ported yet "
-                         f"(see ROADMAP.md)")
+def check_args(args, world: int = 1) -> None:
+    """Raise SystemExit with JAX's message for flags that contradict each
+    other or do not fit a world of `world` ranks."""
+    if args.ep > 1:
+        if args.tp != 1:
+            raise SystemExit("fast_dit_torch.train: --tp and --ep are mutually exclusive meshes")
+        experts = DiT_models[args.model].keywords.get("moe_experts", 0)
+        if experts % args.ep or experts < args.ep:
+            raise SystemExit(f"fast_dit_torch.train: --ep {args.ep} must divide the model's "
+                             f"expert count ({experts}); pick a DiT-MoE-* model")
+    inner = max(args.tp, args.ep)
+    if world % inner:
+        axis = "expert" if args.ep > 1 else "model"
+        raise SystemExit(f"fast_dit_torch.train: {world} ranks not divisible by "
+                         f"{axis}={inner}")
+    n_data = world // inner
+    if args.global_batch_size % (n_data * args.grad_accum):
+        raise SystemExit(f"fast_dit_torch.train: global batch {args.global_batch_size} must be "
+                         f"divisible by data-axis size {n_data} x grad_accum {args.grad_accum}")
     if (args.nu_dtype != "fp32" or args.factored_nu) and not args.fused_optimizer:
         raise SystemExit("fast_dit_torch.train: --nu-dtype and --factored-nu are "
                          "fused-optimizer features; add --fused-optimizer")
@@ -76,24 +103,32 @@ def check_args(args) -> None:
                          "--objective flow draws continuous t")
     if args.image_size % 8:
         raise SystemExit("fast_dit_torch.train: image size must be divisible by 8")
-    if args.global_batch_size % args.grad_accum:
-        raise SystemExit(f"fast_dit_torch.train: global batch {args.global_batch_size} "
-                         f"must be divisible by grad_accum {args.grad_accum}")
 
 
-def build(args):
-    """(model, diffusion, state, train_step) on `args.device`: the seeded
-    model (a flow model predicts the velocity, with no learned-sigma
-    channels), the 1000-step training process, the optimizer route, the
+def make_mesh(args):
+    """The mesh of `train.py:70-82` over this process's world (one rank
+    when there is no `torch.distributed` world)."""
+    if args.ep > 1:
+        return create_expert_mesh(args.ep)
+    return create_mesh(model=args.tp)
+
+
+def build(args, mesh=None, device=None):
+    """(model, diffusion, state, train_step) on `device` (default
+    `args.device`): the seeded model (a flow model predicts the velocity,
+    with no learned-sigma channels), sharded on `mesh` (default: the world's,
+    `make_mesh`), the 1000-step training process, the optimizer route, the
     timestep sampler and the step, whose draws come from a generator seeded
     with --global-seed (the state carries it)."""
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if device is None else device
+    mesh = make_mesh(args) if mesh is None else mesh
     model = DiT_models[args.model](
         input_size=args.image_size // 8, num_classes=args.num_classes,
         learn_sigma=args.objective == "eps",
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         attn_backend=args.attn_backend, remat=not args.no_remat,
         remat_policy=args.remat_policy, device=device, seed=args.global_seed)
+    shard_params(model, mesh, tp=args.tp > 1, fsdp=args.fsdp)
     model.train()
     diffusion = create_diffusion("", device=device)
     sampler_state = (None if args.schedule_sampler == "uniform" else
@@ -106,22 +141,26 @@ def build(args):
                                nu_dtype=torch.bfloat16 if args.nu_dtype == "bf16" else None,
                                factored_nu=args.factored_nu, sampler_state=sampler_state,
                                generator=generator)
-    train_step = make_train_step(model, diffusion.schedule, ema_decay=args.ema_decay,
-                                 grad_accum=args.grad_accum, lr=args.lr,
-                                 objective=args.objective, flow_path=args.flow_path,
-                                 generator=generator, moe_aux_weight=args.moe_aux_weight,
-                                 moe_z_weight=args.moe_z_weight)
+    train_step = make_sharded_train_step(
+        model, diffusion.schedule, mesh, ema_decay=args.ema_decay, grad_accum=args.grad_accum,
+        lr=args.lr, objective=args.objective, flow_path=args.flow_path, generator=generator,
+        moe_aux_weight=args.moe_aux_weight, moe_z_weight=args.moe_z_weight)
     return model, diffusion, state, train_step
 
 
-def device_batches(args, device, logger=None):
+def device_batches(args, device, logger=None, mesh=None):
     """One iterator of {"x", "y"} batches on `device` per epoch: synthetic
     latents (one endless epoch) or the feature files, read by the Python
-    loader or, with --native-loader, the C++ one."""
+    loader or, with --native-loader, the C++ one; on a `mesh`, the rows of
+    this rank's data index."""
     latent_size = args.image_size // 8
+    part = {} if mesh is None else {"process_index": mesh.data_rank,
+                                    "process_count": mesh.data}
     if args.synthetic_data:
-        epochs = [synthetic_features(args.global_batch_size, latent_size=latent_size,
-                                     num_classes=args.num_classes, seed=args.global_seed)]
+        rows = slice(None) if mesh is None else batch_rows(mesh, args.global_batch_size)
+        epochs = [({k: v[rows] for k, v in b.items()} for b in synthetic_features(
+            args.global_batch_size, latent_size=latent_size, num_classes=args.num_classes,
+            seed=args.global_seed))]
         if logger:
             logger.info("Using synthetic latent features")
     else:
@@ -133,13 +172,13 @@ def device_batches(args, device, logger=None):
         if args.native_loader:
             epochs = (NativeFeatureLoader(feat_dir, label_dir, args.global_batch_size,
                                           seed=args.global_seed + e, num_epochs=1,
-                                          num_threads=args.num_workers)
+                                          num_threads=args.num_workers, **part)
                       for e in range(args.epochs))
             if logger:
                 logger.info("Using the native C++ feature loader")
         else:
             epochs = [feature_batches(dataset, args.global_batch_size,
-                                      seed=args.global_seed + e, num_epochs=1)
+                                      seed=args.global_seed + e, num_epochs=1, **part)
                       for e in range(args.epochs)]
     for batches in epochs:
         yield ({"x": torch.from_numpy(b["x"]).to(device, non_blocking=True),
@@ -148,29 +187,50 @@ def device_batches(args, device, logger=None):
 
 
 def main(args) -> None:
-    check_args(args)
     try:
         device = resolve_device(args.device)
+        world, rank, device = maybe_initialize_distributed(device)
     except RuntimeError as e:
         raise SystemExit(f"fast_dit_torch.train: {e}") from None
+    try:
+        _train(args, world, rank, device)
+    finally:
+        destroy_distributed()
+
+
+def _train(args, world: int, rank: int, device: torch.device) -> None:
+    check_args(args, world)
     if args.matmul_precision != "default":
         torch.set_float32_matmul_precision(args.matmul_precision)
-    # --resume re-enters the latest experiment dir instead of making a new one
-    experiment_dir = ((find_latest_experiment_dir(args.results_dir, args.model)
-                       if args.resume else None)
-                      or make_experiment_dir(args.results_dir, args.model))
+    is_main = rank == 0
+    # rank 0 makes the dir (--resume re-enters the latest one instead); every
+    # rank learns the same path
+    experiment_dir = None
+    if is_main:
+        experiment_dir = ((find_latest_experiment_dir(args.results_dir, args.model)
+                           if args.resume else None)
+                          or make_experiment_dir(args.results_dir, args.model))
+    experiment_dir = broadcast_string(experiment_dir)
     checkpoint_dir = f"{experiment_dir}/checkpoints"
-    logger = create_logger(experiment_dir)
+    logger = create_logger(experiment_dir if is_main else None, is_main=is_main)
     logger.info(f"Experiment directory created at {experiment_dir}")
 
-    model, diffusion, state, train_step = build(args)
-    logger.info(f"DiT Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    mesh = make_mesh(args)
+    model, diffusion, state, train_step = build(args, mesh, device)
+    n_params = sum(math.prod(s.full_shape) for s in model.sharding.shards)
+    logger.info(f"DiT Parameters: {n_params:,}")
+    if world > 1:
+        logger.info(f"Mesh: {mesh.shape} over {world} ranks (tp={args.tp}, ep={args.ep}, "
+                    f"fsdp={args.fsdp})")
     ckpt = CheckpointManager(checkpoint_dir)
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         logger.info(f"Resumed from checkpoint at step {state.step}")
     # the data starts again at epoch 0 after a resume, as in JAX
-    epochs = device_batches(args, device, logger)
+    epochs = device_batches(args, device, logger, mesh)
+    # the ranks agree on stopping at a step boundary through a CPU flag, so
+    # that no rank waits in a collective another has left
+    control = dist.new_group(backend="gloo") if world > 1 else None
 
     profiler = None
     if args.profile_dir:
@@ -222,7 +282,10 @@ def main(args) -> None:
                     start_time = time.time()
                 if train_steps % args.ckpt_every == 0:
                     logger.info(f"Saved checkpoint to {ckpt.save(train_steps, state, args)}")
-                if preempted["flag"] or (args.max_steps and train_steps >= args.max_steps):
+                stop = preempted["flag"]
+                if control is not None:
+                    stop = all_reduce(torch.tensor([float(stop)]), control).item() > 0
+                if stop or (args.max_steps and train_steps >= args.max_steps):
                     done = True
                     break
             if done:
@@ -234,10 +297,15 @@ def main(args) -> None:
     if profiler is not None:
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        profiler.export_chrome_trace(os.path.join(args.profile_dir,
+                                                  f"trace{'' if is_main else rank}.json"))
         logger.info(f"Wrote profiler trace to {args.profile_dir}")
     logger.info(f"Saved checkpoint to {ckpt.save(train_steps, state, args)}")
-    if args.export_pt:
+    if args.export_pt and world > 1:
+        logger.warning("--export-pt skipped: the export needs a full local copy of the EMA "
+                       "and runs in a world of one process; the step's checkpoint holds "
+                       "the full EMA under \"ema\"")
+    elif args.export_pt:
         torch.save(ema_state_dict(state), f"{checkpoint_dir}/{train_steps:07d}-ema.pt")
         logger.info(f"Exported the EMA state dict at step {train_steps}")
     logger.info("Done!")
@@ -261,13 +329,17 @@ def parse_args(argv=None):
     # the JAX trainer's extensions
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--ema-decay", type=float, default=0.9999)
-    parser.add_argument("--tp", type=int, default=1, help="not ported yet")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel ranks per data index (a ('data', 'model') mesh)")
     parser.add_argument("--moe-aux-weight", type=float, default=1e-2,
                         help="load-balance aux-loss weight (DiT-MoE-* models)")
     parser.add_argument("--moe-z-weight", type=float, default=1e-3,
                         help="router z-loss weight (DiT-MoE-* models)")
-    parser.add_argument("--ep", type=int, default=1, help="not ported yet")
-    parser.add_argument("--fsdp", action="store_true", help="not ported yet")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel ranks per data index (DiT-MoE-* models; a "
+                             "('data', 'expert') mesh)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard parameters and optimizer state over the data axis")
     parser.add_argument("--grad-accum", type=int, default=1)
     parser.add_argument("--fp32", action="store_true", help="disable bf16 activations")
     parser.add_argument("--no-remat", action="store_true",

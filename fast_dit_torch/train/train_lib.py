@@ -34,6 +34,23 @@ join the loss as `moe_aux_weight * load_balance + moe_z_weight * router_z`
 (`train_lib.py:159-212`), and the metrics carry `moe_load_balance`,
 `moe_router_z` and `moe_dropped_frac` (telemetry, never in the loss). The
 step refuses quantised and token-merged models: both are inference-only.
+
+`make_sharded_train_step` (counterpart of `make_sharded_train_step`,
+`train_lib.py:290-368`) runs the same step on a mesh of ranks
+(`parallel/mesh.py`), on a model whose parameters `shard_params` has made
+local. The rank is handed its data index's rows of the global batch (the
+ranks' local batches, concatenated in data-rank order). Every rank draws t
+(and the weights), the noise and the label drops of the global microbatch
+from its generator, seeded alike, and keeps its rows, so a world of n
+equals one process on the global batch; the loss-second-moment state folds
+in the global batch's (t, loss) pairs, its losses all-gathered in global
+order, and stays equal on every rank. With `grad_accum > 1` the global batch
+is all-gathered first and split into contiguous global microbatches, as
+JAX reshapes its global array. After the microbatches the gradients are
+averaged over the data group once, before any optimizer route: the
+replicated ones all-reduced (one flat buffer per dtype), the FSDP shards,
+already summed by their gathers' reduce-scatter, divided. Metrics are
+means over the data group, the gradient norm the global one.
 """
 
 from __future__ import annotations
@@ -50,10 +67,11 @@ from ..diffusion.gaussian import training_losses
 from ..diffusion.timestep_samplers import sample_timesteps, update_with_losses
 from ..ops.fused_update import (FusedAdamWEmaState, fused_adamw_ema_apply,
                                 fused_adamw_ema_init)
+from ..parallel.collectives import all_gather, all_reduce
 from .mixed_precision import get_master_params, masterize
 
 __all__ = ["TrainState", "create_train_state", "update_ema", "make_train_step",
-           "ema_state_dict"]
+           "make_sharded_train_step", "ema_state_dict"]
 
 
 @dataclasses.dataclass
@@ -116,9 +134,12 @@ def create_train_state(model: nn.Module, *, lr: Optional[float] = None,
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
     if fused_optimizer:
+        sharding = getattr(model, "sharding", None)
         opt = fused_adamw_ema_init(params, mu_dtype=torch.bfloat16,
                                    nu_dtype=nu_dtype or torch.float32, factored=factored_nu,
-                                   leaves=jax_leaves(model) if factored_nu else None)
+                                   leaves=(sharding.leaves if sharding is not None else
+                                           jax_leaves(model)) if factored_nu else None,
+                                   sharding=sharding)
     elif mixed_precision:
         opt = masterize(params, lambda master: _adamw(master, lr, weight_decay))
     else:
@@ -141,7 +162,7 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
                     grad_accum: int = 1, log_grad_norm: bool = False, lr: float = 1e-4,
                     weight_decay: float = 0.0, objective: str = "eps",
                     flow_path: str = "linear", generator: Optional[torch.Generator] = None,
-                    moe_aux_weight: float = 1e-2, moe_z_weight: float = 1e-3):
+                    moe_aux_weight: float = 1e-2, moe_z_weight: float = 1e-3, mesh=None):
     """Build `train_step(state, batch, draws=None) -> metrics`.
 
     batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels} on the
@@ -151,6 +172,8 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
     generator. `lr` and `weight_decay` serve the fused route; the AdamW
     routes take them from `create_train_state`. `moe_aux_weight` and
     `moe_z_weight` weigh a MoE model's load-balance and router z-losses.
+    `mesh`: see `make_sharded_train_step` (the batch is then the rank's
+    rows, and `draws` hold the global microbatches' draws).
     """
     if objective not in ("eps", "flow"):
         raise ValueError(f"unknown objective {objective!r}")
@@ -162,22 +185,39 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
+    data = mesh.data if mesh is not None else 1
+    drank = mesh.data_rank if mesh is not None else 0
+    dgroup = mesh.data_group if mesh is not None else None
+    drop_prob = model.y_embedder.dropout_prob
+
     def micro_step(x, y, draw, sampler_state):
-        B = x.shape[0]
+        B = x.shape[0]          # this rank's rows
+        n = B * data            # the global microbatch's
         weights = None
+        force = None
         if draw is None:
             if objective == "flow":
-                t = torch.rand((B,), generator=generator, device=x.device)
+                t = torch.rand((n,), generator=generator, device=x.device)
             elif sampler_state is not None:
-                t, weights = sample_timesteps(sampler_state, generator, B)
+                t, weights = sample_timesteps(sampler_state, generator, n)
             else:
-                t = torch.randint(0, schedule.num_timesteps, (B,), generator=generator,
+                t = torch.randint(0, schedule.num_timesteps, (n,), generator=generator,
                                   device=x.device)
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-            force = None
+            noise = torch.randn((n, *x.shape[1:]), generator=generator, dtype=x.dtype,
+                                device=x.device)
+            if mesh is not None and drop_prob > 0:
+                # the draw the label embedder makes, for the global microbatch
+                force = (torch.rand((n,), generator=generator, device=x.device)
+                         < drop_prob).long()
         else:
             t, noise, force = draw["t"], draw["noise"], draw.get("force_drop_ids")
             weights = draw.get("weights")
+        t_all = t
+        if mesh is not None:  # this rank's rows of the global draws
+            rows = slice(drank * B, (drank + 1) * B)
+            t, noise = t[rows], noise[rows]
+            weights = None if weights is None else weights[rows]
+            force = None if force is None else force[rows]
 
         auxes = []  # the aux values of the loss's one model call, with their graph
 
@@ -207,7 +247,9 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
             metrics["moe_dropped_frac"] = aux["dropped_frac"].detach().mean()
         loss.backward()
         if sampler_state is not None:
-            sampler_state = update_with_losses(sampler_state, t, per_example.detach())
+            # the global batch's (t, loss) pairs in global order
+            sampler_state = update_with_losses(sampler_state, t_all,
+                                               all_gather(per_example.detach(), dgroup))
         return metrics, sampler_state
 
     def train_step(state: TrainState, batch, draws=None) -> Dict[str, torch.Tensor]:
@@ -224,10 +266,16 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         if objective == "flow" and state.sampler_state is not None:
             raise ValueError("the loss-second-moment sampler draws discrete timesteps; flow "
                              "matching draws continuous t")
+        start, step = 0, mb
+        if grad_accum > 1 and data > 1:
+            # contiguous global microbatches, as JAX reshapes the global batch
+            x, y = all_gather(x, dgroup), all_gather(y, dgroup)
+            start, step = drank * mb, mb * data
         per_micro = []
         for i in range(grad_accum):
             # each microbatch sees the sampler state the previous one updated
-            m, state.sampler_state = micro_step(x[i * mb:(i + 1) * mb], y[i * mb:(i + 1) * mb],
+            rows = slice(start + i * step, start + i * step + mb)
+            m, state.sampler_state = micro_step(x[rows], y[rows],
                                                 None if draws is None else draws[i],
                                                 state.sampler_state)
             per_micro.append(m)
@@ -235,6 +283,11 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         if grad_accum > 1:
             torch._foreach_div_(grads, float(grad_accum))
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
+        if mesh is not None and data > 1:
+            _average_over_data(grads, model.sharding, dgroup, data)
+            names = list(metrics)
+            means = all_reduce(torch.stack([metrics[k] for k in names]), dgroup) / data
+            metrics = dict(zip(names, means.unbind()))
 
         ema = list(state.ema.values())
         if isinstance(state.opt, FusedAdamWEmaState):
@@ -245,8 +298,48 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
             update_ema(ema, get_master_params(state.opt) or params, ema_decay)
         if log_grad_norm:  # telemetry only: touches every gradient
             norms = torch._foreach_norm([g.float() for g in grads])
-            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(norms))
+            if mesh is None or mesh.size == 1:
+                metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(norms))
+            else:
+                metrics["grad_norm"] = _global_norm(norms, model.sharding)
         state.step += 1
         return metrics
 
     return train_step
+
+
+@torch.no_grad()
+def _average_over_data(grads: List[torch.Tensor], sharding, group, data: int) -> None:
+    """The data group's mean of each gradient, in place: the replicated
+    ones all-reduced as one flat buffer per dtype, the FSDP shards (summed
+    by their gathers' backward already) divided."""
+    flat: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for s, g in zip(sharding.shards, grads):
+        if not s.data_sharded:
+            flat.setdefault(g.dtype, []).append(g)
+    for gs in flat.values():
+        buf = all_reduce(torch.cat([g.reshape(-1) for g in gs]), group)
+        torch._foreach_copy_(gs, [b.view_as(g) for b, g in
+                                  zip(buf.split([g.numel() for g in gs]), gs)])
+    torch._foreach_div_(grads, float(data))
+
+
+def _global_norm(norms: List[torch.Tensor], sharding) -> torch.Tensor:
+    """The norm of the whole gradient from the ranks' local norms: each
+    square summed over the world, divided by the number of ranks that hold
+    the same values."""
+    mesh = sharding.mesh
+    sq = torch.stack([n * n / ((1 if s.inner_sharded else mesh.inner_size)
+                               * (1 if s.data_sharded else mesh.data))
+                      for n, s in zip(norms, sharding.shards)]).sum()
+    return torch.sqrt(all_reduce(sq, mesh.world_group))
+
+
+def make_sharded_train_step(model: nn.Module, schedule, mesh, **kw):
+    """`make_train_step` on `mesh` for a model that `parallel.mesh.shard_params`
+    has sharded on it (see the module docstring). The batch is the rank's
+    rows; `draws` hold the global microbatches'. A mesh of one rank is the
+    plain step with the label drops drawn beside t and the noise."""
+    if getattr(model, "sharding", None) is None or model.sharding.mesh is not mesh:
+        raise ValueError("shard the model on this mesh first (parallel.mesh.shard_params)")
+    return make_train_step(model, schedule, mesh=mesh, **kw)

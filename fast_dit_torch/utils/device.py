@@ -39,16 +39,18 @@ def tf32(enabled: bool):
         backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = saved
 
 
-def world_and_rank(device: torch.device):
+def world_and_rank(device: torch.device, backend=None):
     """(world, rank, device): join the `torch.distributed` group when RANK and
-    WORLD_SIZE are set, taking card LOCAL_RANK on CUDA; else (1, 0, device)."""
+    WORLD_SIZE are set, taking card LOCAL_RANK on CUDA; else (1, 0, device).
+    The backend is NCCL on the card and gloo on the CPU unless `backend`
+    names one."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return 1, 0, device
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+        dist.init_process_group(backend or ("nccl" if device.type == "cuda" else "gloo"),
                                 init_method="env://",
                                 timeout=datetime.timedelta(minutes=30))
     return dist.get_world_size(), dist.get_rank(), device

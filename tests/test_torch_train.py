@@ -387,17 +387,16 @@ def test_cli_trains_on_cpu_in_process_and_writes_a_loadable_checkpoint(tmp_path)
     assert all(torch.equal(exported[k], ckpt["ema"][k]) for k in exported)
 
 
-UNPORTED = ("--tp", "--fsdp", "--ep")
+MESH_FLAGS = ("--tp", "--ep")
 
 
 @pytest.mark.parametrize("flags", [
-    # --resume, the remat policies, bf16 and factored nu, flow and the
-    # loss-second-moment sampler are ported (their runs:
-    # test_cli_runs_the_remat_policies_and_nu_kinds_on_cpu,
-    # tests/test_torch_resume.py); those cases now pair them with a flag that
-    # stays unported, which alone must be named. --native-loader is ported
-    # too (tests/test_torch_native_loader.py): its two cases, which name no
-    # unported flag, now run one step on a feature folder through it
+    # every flag here is ported: --fsdp runs in a world of one process (a
+    # data axis of 1, as in JAX), --tp 2 and --ep 2 need two ranks and are
+    # refused in a world of one with JAX's reasons, naming no other flag
+    # (their runs in a world of two: tests/test_torch_fsdp_tp.py,
+    # tests/test_torch_expert_parallel.py); the other cases run one step on a
+    # feature folder
     ["--resume", "--tp", "2"], ["--tp", "2"], ["--fsdp"], ["--ep", "2"], ["--native-loader"],
     ["--objective", "flow", "--resume", "--fsdp"],
     ["--schedule-sampler", "loss-second-moment", "--remat-policy", "attn_mlp", "--ep", "2"],
@@ -406,7 +405,7 @@ UNPORTED = ("--tp", "--fsdp", "--ep")
     ["--fused-optimizer", "--factored-nu", "--fsdp"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
-    if not any(f in UNPORTED for f in flags):
+    if not any(f in MESH_FLAGS for f in flags):
         feat = tmp_path / "features"
         rs = np.random.RandomState(0)
         for sub, arr in (("features", lambda: rs.randn(1, 4, 32, 32).astype(np.float32)),
@@ -420,15 +419,17 @@ def test_cli_refuses_what_is_not_ported(flags, tmp_path):
         cli.main(args)
         (exp,) = (tmp_path / "r").iterdir()
         log = (exp / "log.txt").read_text()
-        assert "Using the native C++ feature loader" in log and "Train Loss" in log
+        assert "Train Loss" in log
+        assert ("--native-loader" in flags) == ("Using the native C++ feature loader" in log)
         return
     args = cli.parse_args(["--device", "cpu", "--synthetic-data", "--model", "DiT-S/2",
                            "--results-dir", str(tmp_path), *flags])
-    with pytest.raises(SystemExit, match="not ported yet") as e:
+    want = ("1 ranks not divisible by model=2" if "--tp" in flags else
+            r"--ep 2 must divide the model's expert count \(0\)")
+    with pytest.raises(SystemExit, match=want) as e:
         cli.main(args)
     message = str(e.value)
-    assert all(f in message for f in flags if f in UNPORTED)
-    assert not any(f in message for f in flags if f.startswith("--") and f not in UNPORTED)
+    assert not any(f in message for f in flags if f.startswith("--") and f not in MESH_FLAGS)
     assert not list(tmp_path.iterdir())
 
 

@@ -49,7 +49,8 @@ nonzero:
  9. samplers:     the fast samplers at the sampling path's width (DiT-XL/2 256², bf16,
                   CFG 4.0, 8 labels): DPM-Solver++ at 20 steps, UniPC at 10 with Karras
                   spacing, DDPM at 50 with the guidance interval [0.28, 5.42], and a
-                  flow model (learn_sigma=False) with Euler at 20 and Heun at 10, each
+                  flow model (learn_sigma=False, cut to CUT_DEPTH = 7 blocks) with Euler
+                  at 20 and Heun at 10, each
                   chain run through the sampler CLI's functions under
                   torch.cuda.set_sync_debug_mode("error") (no host sync in a step),
                   with s/step, images/s, model evaluations, kernel-1 launches exactly
@@ -62,20 +63,21 @@ nonzero:
                   small fp32 model, card against CPU.
 9b. tome:         token merging: kernel 1 against its plain version at the ragged S
                   ToMe makes at 256² (180 at ratio 0.3, 128 at 0.5), fp32 and bf16; small
-                  fp32 ToMe models card vs CPU (1e-4 x max); then DiT-XL/2 at cell 1's
-                  shape with --tome-ratio 0.3, 0.5, 0.5 --tome-mlp and 0.5
-                  --cache-interval 2 through the sampler CLI's functions (sync debug
-                  mode "error", kernel-1 launches exactly depth x refresh steps), each
-                  profiled, with max |delta| of the final latents against phase
-                  `sample`'s exact chain (same weights and noise): recorded, not bounded.
+                  fp32 ToMe models card vs CPU (1e-4 x max); then DiT-XL/2 cut to 7
+                  blocks at cell 1's shape with --tome-ratio 0.3, 0.5, 0.5 --tome-mlp
+                  and 0.5 --cache-interval 2 through the sampler CLI's functions (sync
+                  debug mode "error", kernel-1 launches exactly depth x refresh steps),
+                  each profiled, with max |delta| of the final latents against the
+                  exact chain of the same cut model, run once before 9b (same weights
+                  and noise): recorded, not bounded.
 9c. quant:        W8A8: the int8 GEMM at DiT-XL/2's four projection shapes equal to an
                   fp32 matmul of its int8 operands (every partial sum below 2^24) and
                   timed against the bf16 F.linear; small fp32 quantised models card vs
                   CPU (1e-2 x max: a one-ulp difference before a quantiser may move an
                   int8 code by one step); then DiT-XL/2 with --quantize w8a8, alone and
                   with --cache-interval 2, as in 9b, with the drift against the bf16 chain.
-10. sample_ddp:   the FID harness's own main at full width (XL/2 256², the random
-                  VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
+10. sample_ddp:   the FID harness's own main at full width (XL/2 256² cut to 7 blocks,
+                  the random VAE, 16 images, 10 steps, CFG 1.5): the npz equals its PNGs, the
                   forward kernel launches exactly depth x steps x batches times.
 11. extract:      feature extraction's per-batch functions on 16 seeded 256² images:
                   (1, 4, 32, 32) finite features that the trainer's dataset reads.
@@ -84,8 +86,9 @@ nonzero:
                   objective; then the training main path, the trainer CLI's own
                   functions at full DiT-XL/2 width and depth (batch 32, bf16, remat),
                   with the launch counts checked at exactly 2 x depth x steps
-                  (forward, run again by remat) and depth x steps (backward); then
-                  the same with --fused-optimizer, one fused-update launch per
+                  (forward, run again by remat) and depth x steps (backward); then,
+                  cut to 7 blocks, the same with --fused-optimizer, one fused-update
+                  launch per
                   parameter leaf per step, with --objective flow and with
                   --schedule-sampler loss-second-moment, with --no-remat, with the remat
                   policies attn and attn_mlp, and with --fused-optimizer and a bf16 or a
@@ -94,19 +97,19 @@ nonzero:
                   the peak of allocated memory; first a small model card vs CPU under
                   each remat policy and nu kind; last --native-loader on the feature
                   folder phase `extract` wrote: every batch equal to the Python loader's,
-                  then 2 steps after 1 on it.
+                  then 2 steps after 1 on it (7 blocks).
 12a. moe:         the DiT-MoE family: a small fp32 MoE model card vs CPU (a chain, 1e-4
                   x max; two train steps: loss 1e-5 relative, gradients 1e-4 of max, the
                   same kept (choice, token) masks); kernel 3 against `_update_math` over
                   the MoE tree at full width and depth 4, both nu dtypes, every element
-                  equal; DiT-MoE-XL/2-8E2A (28 blocks, 8 experts, top-2, 2.76 G
-                  parameters) sampling cell 1's chain through the sampler CLI's functions
-                  (launches exact, profiled, the capacity's dropped share) and
-                  `sample_latents`; then the trainer CLI's functions at batch 32, bf16,
-                  remat "nothing", 3 steps after 2 under sync debug mode "error": with
-                  --fused-optimizer at full depth (one fused-update launch per parameter
-                  leaf per step) and the default AdamW route at depth 14 (24 bytes a
-                  parameter: 62 GiB at full depth before AdamW's temporaries).
+                  equal; DiT-MoE-XL/2-8E2A (8 experts, top-2; 2.76 G parameters at its
+                  28 blocks) cut to 7 blocks sampling cell 1's chain through the sampler
+                  CLI's functions (launches exact, profiled, the capacity's dropped
+                  share) and `sample_latents`; then the trainer CLI's functions at
+                  batch 32, bf16, remat "nothing", 3 steps after 2 under sync debug mode
+                  "error", cut to 14 blocks: with --fused-optimizer (one fused-update
+                  launch per parameter leaf per step) and the default AdamW route (24
+                  bytes a parameter: 62 GiB at full depth before AdamW's temporaries).
 12b. resume:      DiT-XL/2's width at depth 4, every optimizer route and nu kind with
                   warmed-up loss-second-moment t: 2 steps, save, 2 more, against a
                   state from another seed that restores the file and runs the same 2
@@ -120,13 +123,14 @@ nonzero:
                   loss-second-moment t and grad-accum 2, FSDP 2, TP 2, EP 2; TP 2 + FSDP
                   and EP 2 + FSDP on 4 ranks) against one process on the card, to the
                   CPU tests' limits, ranks that hold the same part of a parameter
-                  holding the same bytes; the trainer CLI's functions at DiT-XL/2, batch
-                  32, bf16, remat "nothing", --fused-optimizer, 3 steps after 2 under
-                  sync debug mode "error" (the gloo collectives exempt), with DP 2,
-                  FSDP 2, TP 2, and DiT-MoE-XL/2-8E2A cut to depth 14 with EP 2: losses
+                  holding the same bytes (the worlds of 2 and 4 at once, beside their
+                  references); the trainer CLI's functions at DiT-XL/2 cut to 7
+                  blocks, batch 32, bf16, remat "nothing", --fused-optimizer, 2 steps
+                  after 1 under sync debug mode "error" (the gloo collectives exempt),
+                  with DP 2, FSDP 2, TP 2, and DiT-MoE-XL/2-8E2A cut to 4 with EP 2: losses
                   within 2e-2 of one process, launches exact per rank, s/step, peak
                   memory, collective ms, DP 2's step profiled; then the CLI's main at world
-                  1 over NCCL. Kernels 1 and 2 at the ranks' shapes, (16,256,16,72) and
+                  1 over NCCL (7 blocks). Kernels 1 and 2 at the ranks' shapes, (16,256,16,72) and
                   (32,256,8,72), are in phases 3 and 4.
 13. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
@@ -136,12 +140,47 @@ nonzero:
                   inputs (parent_ms, dtype code 2, which no wrapper passes).
 14. ring_kernel_bwd: the hop backward the same way, with the fused SDPA backward op
                   alone timed beside it, as in kernel_bwd.
-15. seq_parallel: sequence-parallel DiT-XL/2 at 512² over LocalRing(4): a small model
+15. seq_parallel: sequence-parallel DiT-XL/2 at 512², cut to 14 blocks, over
+                  LocalRing(4): a small model
                   on the card against the CPU; the full model's forward against its
                   unsharded forward, fp32 and bf16; DDPM sampling over the sharded
                   forward; the gradient of sum(out^2) against the unsharded model's;
                   the hop kernels' launch counts checked exactly.
-Then the `kernels` line, the nvidia-smi line, and the final status line. Kernel,
+16. pipeline:     GPipe over the block stack: a small fp32 DiT-S/2 (depth 4) through
+                  LocalStages(2) on the card against the CPU, forward and gradient;
+                  DiT-XL/2 256², bf16, batch 32 in 4 microbatches over LocalStages(4)
+                  (7 blocks a stage): the forward against `model(x, t, y)` (2e-2 x max),
+                  the gradient of a mean-squared loss against the unpipelined model's
+                  (2e-2 x max per leaf), kernel 1 launched exactly 28 x 4 times by a
+                  forward and kernel 2 28 x 4 times by its backward; wall and device ms
+                  per forward and per forward + backward against the unpipelined model,
+                  peak memory, kernels 1 and 2 at the microbatch shape (8,256,16,72);
+                  two ProcessGroupStages ranks (processes on the one card over gloo,
+                  started first and run beside the above) drive a small fp32 DiT-S/2
+                  256² (depth 4, 2 blocks each, each rank holding only its own blocks):
+                  forward, gradient and a PipeFusion chain against LocalStages(2) in
+                  one process (1e-5 x max, gradient leaves 1e-4 x max), launches exact
+                  per rank, with the transport's seconds; no scaling number; the same
+                  ranks rotate CUDA tensors around ProcessGroupRing (host buffers:
+                  gloo's send and recv fail on CUDA tensors).
+17. pipefusion:   PipeFusion sampling: the CPU tests' tiny model chunked with CFG on the
+                  card against the CPU; DiT-XL/2 256², bf16, CFG 4.0, 8 labels, DDIM 50,
+                  LocalStages(4), under sync debug mode "error": the one-chunk forward
+                  against the model's (2e-2 x max), the one-chunk chain against
+                  `ddim_sample_loop` over `forward_with_cfg` (relative distance 2e-2: two
+                  exact bf16 chains with other attention ops part by about that much over
+                  50 guided steps, measured beside it with the plain attention), 4
+                  chunks of 64 tokens (warmup 1) with their relative distance from the
+                  exact chain (recorded, not bounded; the chunks read the step's input
+                  cache, as JAX's code does); s/step, images/s, the K/V cache's bytes,
+                  peak memory; the pipeline ranks' chunked chains of their small model
+                  (1 exact step, 3 chunked) against LocalStages(2)'s.
+Every phase line carries t_s (seconds since the start) and phase_s (seconds since
+its phase of `main` began). Then the `timing` line, {"timing": {phase: wall
+seconds}, "total_s": s}; the `kernels` line, the nvidia-smi line, and the final
+status line. The whole script is held to 600 s on the H100 (PERF.md, Cells):
+depth is cut where a run repeats a shape that another run drives at full depth
+(CUT_DEPTH, MOE_TRAIN_DEPTH, PAR_DEPTH, PAR_EP_DEPTH, SEQ_DEPTH). Kernel,
 plain and library times are device times: `cuda_ms` queues the timed calls behind
 a spin of the device, so the host's time per call does not show in them.
 """
@@ -150,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -211,7 +251,7 @@ MAIN_SHAPE = (16, 256, 16, 72)  # DiT-XL/2 256², CFG batch of 8 labels
 # the output (2^-8) and delta formed from the bf16-rounded forward output
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_SHAPES = [(32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64), (16, 256, 16, 72),
-              (32, 256, 8, 72)]
+              (32, 256, 8, 72), (8, 256, 16, 72)]
 TRAIN_SHAPE = (32, 256, 16, 72)  # DiT-XL/2 256², batch 32
 # the large-logit case, at MAIN_SHAPE (forward) and TRAIN_SHAPE (backward): q
 # and k scaled by 4, so the logits reach about 100, past the TPU's bf16 clamp
@@ -222,6 +262,12 @@ LARGE_QK, LARGE_V = 4.0, 0.25
 TRAIN_ARGS = ["--model", "DiT-XL/2", "--synthetic-data", "--global-batch-size", "32",
               "--global-seed", "0"]
 TRAIN_STEPS, FUSED_TRAIN_STEPS = 10, 3  # timed steps of the two training runs
+# the depth of a run that repeats, at full width, a shape that another run of
+# the script drives at full depth: the training routes beside the main one,
+# the ToMe, W8A8 and MoE sampling chains, the flow samplers, sample_ddp's
+# harness. Each DiT-XL/2 build takes about 10 s of host time (its init on the
+# CPU), so depth, not the device, set most of the script's wall time
+CUT_DEPTH = 7
 LR = 1e-4
 # the ring hop (B' = shards x batch, Sq, Sk, H, hd); errors relative to the
 # largest output, fp32 and bf16 (the plain version computes in fp32 too)
@@ -234,6 +280,7 @@ RING_CLAMP_SHAPE = (2, 200, 136, 6, 64)  # integer q, k: some logits pass 50, ex
 SEQ_N = 4                      # shards of the ring, the per-card shape of a 4-card ring
 SEQ_SAMPLE_BATCH, SEQ_GRAD_BATCH, SEQ_GRAD_STEPS = 4, 2, 3
 SEQ_SAMPLE_STEPS = 10           # DDPM steps of the sequence-parallel sampling path
+SEQ_DEPTH = 14                  # DiT-XL/2 at 512² cut from 28 blocks: two builds a run
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 VAE_CHANNELS = (128, 256, 512, 512)  # the SD kl-f8 VAE (sd-vae-ft-ema / -mse)
 # the VAE card vs CPU, fp32 with TF32 off, relative to the largest output
@@ -273,11 +320,13 @@ QUANT_CHAINS = [("quant_w8a8", ["--quantize", "w8a8"]),
 # the four W8A8 projections of DiT-XL/2 at cell 1's batch: (rows, in, out)
 QUANT_GEMMS = {"qkv": (4096, 1152, 3456), "proj": (4096, 1152, 1152),
                "fc1": (4096, 1152, 4608), "fc2": (4096, 4608, 1152)}
-# the MoE family at full width: 28 blocks, 8 experts, top-2 (2.76 G parameters);
-# the default AdamW route at depth 14 (24 bytes a parameter: 62 GiB at 28),
-# kernel 3's check over the tree at depth 4 (depth repeats the same leaves)
+# the MoE family at full width: 8 experts, top-2 (2.76 G parameters at its 28
+# blocks); sampling at CUT_DEPTH; both training routes at depth 14 (the
+# AdamW route's 24 bytes a parameter make 62 GiB at 28; the fused route took
+# about 50 GiB and a minute of the script there); kernel 3's check over the
+# tree at depth 4 (depth repeats the same leaves)
 MOE_MODEL = "DiT-MoE-XL/2-8E2A"
-MOE_TRAIN_STEPS, MOE_ADAMW_DEPTH, MOE_FU_DEPTH = 3, 14, 4
+MOE_TRAIN_STEPS, MOE_TRAIN_DEPTH, MOE_ADAMW_DEPTH, MOE_FU_DEPTH = 3, 14, 14, 4
 # (name, the trainer CLI's flags): the remat policies (and none, for peak
 # memory) and the fused route's bf16 and factored nu, 3 timed steps after 2,
 # each under sync debug mode "error"
@@ -292,10 +341,13 @@ MORE_TRAIN_STEPS = 3
 RESUME_DEPTH, RESUME_BATCH = 4, 16
 # train_parallel: ranks are processes on cuda:0 over gloo. The small fp32
 # checks (DiT-S/2 and DiT-MoE-S/2-8E2A at 256² cut to depth 4, batch 8, 2
-# steps, by world size); then DiT-XL/2 at batch 32, bf16, remat "nothing",
-# the fused optimizer, PAR_STEPS timed steps after PAR_WARMUP, with DP 2, FSDP
-# 2 and TP 2, and the MoE cut to PAR_EP_DEPTH (two ranks' state must fit one
-# card) with EP 2; the main path's route (PAR_PROFILED) also profiled
+# steps, by world size; the worlds of 2 and 4 run at once, beside their
+# one-process references); then DiT-XL/2 at full width cut to PAR_DEPTH,
+# batch 32, bf16, remat "nothing", the fused optimizer, PAR_STEPS timed steps
+# after PAR_WARMUP, with DP 2, FSDP 2 and TP 2, and the MoE cut to
+# PAR_EP_DEPTH with EP 2; the main path's route (PAR_PROFILED) also profiled.
+# gloo's host transport scales with the parameters' bytes: at full depth the
+# routes took 231 s of the script's 808 on the H100 (PERF.md section 5)
 PAR_TIMEOUT = 900
 PAR_SMALL_BATCH, PAR_SMALL_STEPS = 8, 2
 _S2, _MOE_S2 = ("DiT-S/2", {"depth": 4}), ("DiT-MoE-S/2-8E2A", {"depth": 4})
@@ -318,10 +370,23 @@ PAR_SMALL = {
 }
 PAR_FULL = [("dp2", ["--fused-optimizer"]), ("fsdp2", ["--fused-optimizer", "--fsdp"]),
             ("tp2", ["--fused-optimizer", "--tp", "2"])]
-PAR_EP_DEPTH = 14
-PAR_WARMUP, PAR_STEPS = 2, 3
+PAR_DEPTH, PAR_EP_DEPTH = 7, 4
+PAR_WARMUP, PAR_STEPS = 1, 2
 PAR_PROFILED = ("dp2",)
 PAR_LOSS_RTOL = 2e-2   # bf16 activations: one process and the world sum in other orders
+# the pipeline: DiT-XL/2 256², bf16, batch 32 in 4 microbatches of 8 rows (the
+# kernels' shape, PIPE_SHAPE) over 4 local stages, forward and gradient within
+# 2e-2 x max (per leaf); PIPE_RANKS process stages on the one card drive a
+# small fp32 DiT-S/2 256² (depth PIPE_RANK_DEPTH, PIPE_RANK_BATCH rows in
+# PIPE_MICRO microbatches) against one process; PipeFusion: DDIM 50 with CFG
+# 4.0 over 8 labels, 4 local stages, 4 chunks of 64 tokens after 1 exact step;
+# the ranks' chains take PF_RANK_STEPS steps, the first exact
+PIPE_STAGES, PIPE_BATCH, PIPE_MICRO, PIPE_RANKS = 4, 32, 4, 2
+PIPE_SHAPE = (8, 256, 16, 72)
+PIPE_ITERS = 2
+PIPE_GRAD_RTOL = 2e-2
+PIPE_RANK_DEPTH, PIPE_RANK_BATCH, PIPE_RANK_GRAD_RTOL = 4, 8, 1e-4
+PF_STAGES, PF_CHUNKS, PF_STEPS, PF_WARMUP, PF_RANK_STEPS = 4, 4, 50, 1, 4
 RESUME_ROUTES = [("adamw", {}), ("mixed_precision", {"mixed_precision": True}),
                  ("fused", {"fused_optimizer": True}),
                  ("fused_nu_bf16", {"fused_optimizer": True, "nu_dtype": torch.bfloat16}),
@@ -329,13 +394,39 @@ RESUME_ROUTES = [("adamw", {}), ("mixed_precision", {"mixed_precision": True}),
 
 
 _T0 = time.perf_counter()
+TIMING = {}  # phase of main -> its wall seconds, for the timing line
+_PHASE_T0 = [_T0]  # when the phase of main now running began
 
 
 def emit(obj) -> None:
-    """One JSON line; a phase's line also carries the seconds since start."""
+    """One JSON line; a phase's line also carries the seconds since start
+    (t_s) and since the phase of main that emits it began (phase_s)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - _T0}
+        now = time.perf_counter()
+        obj = {**obj, "t_s": now - _T0, "phase_s": now - _PHASE_T0[0]}
     print(json.dumps(obj), flush=True)
+
+
+def timed(name, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` as the phase `name` of main: its lines carry
+    phase_s, and its wall seconds go into TIMING[name]."""
+    _PHASE_T0[0] = time.perf_counter()
+    out = fn(*args, **kwargs)
+    TIMING[name] = time.perf_counter() - _PHASE_T0[0]
+    return out
+
+
+@contextlib.contextmanager
+def cut_depth(model_name, depth):
+    """`model_name` at full width cut to `depth` blocks, registered for the
+    duration as `<model_name>-depth<depth>` in the model table the CLIs'
+    `--model` reads; yields that name."""
+    name = f"{model_name}-depth{depth}"
+    DiT_models[name] = functools.partial(DiT_models[model_name], depth=depth)
+    try:
+        yield name
+    finally:
+        del DiT_models[name]
 
 
 _spin_cycles_per_ms = None
@@ -456,6 +547,9 @@ def attention_qkv(B, S, H, hd, dtype, g, large):
     return qkv, max_logit
 
 
+KERNEL_ROWS = {}  # (name, shape, dtype, large) -> the row phases kernel and kernel_bwd emitted
+
+
 def _ratios(row):
     row["x_library"] = row["kernel_ms"] / row["library_ms"]
     row["x_bound"] = row["kernel_ms"] / row["bound_ms"]
@@ -518,6 +612,7 @@ def phase_kernel():
                                  + [(MAIN_SHAPE, True)]):
         for dtype in (torch.float32, torch.bfloat16):
             row = _kernel_row("kernel", B, S, H, hd, dtype, g, large)
+            KERNEL_ROWS["attention_fwd", (B, S, H, hd), dtype, large] = row
             emit(row)
             if (B, S, H, hd) == MAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
@@ -564,6 +659,7 @@ def phase_kernel_bwd():
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             emit(_ratios(row))
+            KERNEL_ROWS["attention_bwd", (B, S, H, hd), dtype, large] = row
             if (B, S, H, hd) == TRAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
             del qkv, dout, out, lse, dqkv, ref, q, k, v, do_l, lib
@@ -759,7 +855,7 @@ def phase_sample(steps, profile_table, vae_bin):
         row["profile"] = profile_device(lambda: cli.sample_latents(args, model, diffusion4),
                                         profile_table, "4 sampling steps")
     emit(row)
-    return launches, model, latents
+    return launches, model
 
 
 def profile_device(run, table_path, what):
@@ -936,23 +1032,26 @@ def phase_samplers(profile_table, vae_bin, models):
     model = models.pop()
     root, ext = os.path.splitext(profile_table) if profile_table else (None, None)
     for name, flags, evals in SAMPLER_CHAINS:
-        args = cli.parse_args(SAMPLER_ARGS + flags + ["--vae-ckpt", vae_bin])
-        cli.check_args(args)
-        flow = args.sampler in cli.FLOW_SAMPLERS
-        build_s = None
-        if (model.out_channels == 4) != flow:
-            del model
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            model = cli.build_model(args, torch.device("cuda"), args.seed)
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
+        # the flow model is a model of its own: cut to CUT_DEPTH
+        flow = flags[flags.index("--sampler") + 1] in cli.FLOW_SAMPLERS
+        with cut_depth("DiT-XL/2", CUT_DEPTH) as cut:
+            args = cli.parse_args(["--model", cut if flow else "DiT-XL/2", *SAMPLER_ARGS[2:],
+                                   *flags, "--vae-ckpt", vae_bin])
+            cli.check_args(args)
+            build_s = None
+            if (model.out_channels == 4) != flow:
+                del model
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                model = cli.build_model(args, torch.device("cuda"), args.seed)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
         diffusion = cli.build_diffusion(args, torch.device("cuda"))
         refreshes = _refresh_steps(args, diffusion)
         row, launches[name], _ = _sampler_chain(args, model, diffusion, evals,
                                                 profile_table and f"{root}_{name}{ext}",
                                                 refreshes=refreshes)
-        row["model_build_s"] = build_s
+        row.update(model_build_s=build_s, depth=model.depth)
         if args.cfg_interval is not None:
             guided = int(guided_steps_korder(diffusion.schedule, *args.cfg_interval).sum())
             if (row["guided_calls"], row["conditional_only_calls"]) != (guided, evals - guided):
@@ -1173,11 +1272,11 @@ def _train_run(flags, warmup, steps, profile_table=None, no_sync=False, base=TRA
     return row, launches
 
 
-def _native_loader_run():
+def _native_loader_run(model_name):
     """--native-loader on the feature folder phase `extract` wrote (16
     features, batch 8, 2 epochs): every batch equals the Python loader's;
-    then DiT-XL/2 trains 2 steps after 1 on its first batch."""
-    base = ["--model", "DiT-XL/2", "--feature-path", os.path.join(OUT_DIR, "features"),
+    then `model_name` trains 2 steps after 1 on its first batch."""
+    base = ["--model", model_name, "--feature-path", os.path.join(OUT_DIR, "features"),
             "--global-batch-size", "8", "--global-seed", "0", "--epochs", "2"]
 
     def read(flags):
@@ -1207,24 +1306,28 @@ def phase_train(profile_table):
         table = f"{root}_train{ext}"
     main, main_launches = _train_run([], warmup=3, steps=TRAIN_STEPS,
                                        profile_table=table)
-    fused, fused_launches = _train_run(["--fused-optimizer"], warmup=2,
-                                         steps=FUSED_TRAIN_STEPS)
-    flow, flow_launches = _train_run(["--objective", "flow"], warmup=2, steps=FLOW_TRAIN_STEPS,
-                                     no_sync=True)
-    lsm, lsm_launches = _train_run(["--schedule-sampler", "loss-second-moment"], warmup=2,
-                                   steps=LSM_TRAIN_STEPS, no_sync=True)
-    more, more_launches = {}, {}
-    for name, flags in TRAIN_MORE:
-        more[name], more_launches[f"train_{name}"] = _train_run(
-            flags, warmup=2, steps=MORE_TRAIN_STEPS, no_sync=True)
-    native, native_launches = _native_loader_run()
-    peak = {"main_nothing": (main["peak_mem_gib"], main["fwd_bwd_gib"]),
+    with cut_depth("DiT-XL/2", CUT_DEPTH) as cut:
+        base = ["--model", cut, *TRAIN_ARGS[2:]]
+        fused, fused_launches = _train_run(["--fused-optimizer"], warmup=2,
+                                           steps=FUSED_TRAIN_STEPS, base=base)
+        flow, flow_launches = _train_run(["--objective", "flow"], warmup=2,
+                                         steps=FLOW_TRAIN_STEPS, no_sync=True, base=base)
+        lsm, lsm_launches = _train_run(["--schedule-sampler", "loss-second-moment"], warmup=2,
+                                       steps=LSM_TRAIN_STEPS, no_sync=True, base=base)
+        more, more_launches = {}, {}
+        for name, flags in TRAIN_MORE:
+            more[name], more_launches[f"train_{name}"] = _train_run(
+                flags, warmup=2, steps=MORE_TRAIN_STEPS, no_sync=True, base=base)
+        native, native_launches = _native_loader_run(cut)
+    # the remat policies' memory at one depth: the fused route's policy is
+    # "nothing", as the main route's, and the optimizer does not touch fwd_bwd_gib
+    peak = {"nothing": (fused["peak_mem_gib"], fused["fwd_bwd_gib"]),
             **{k: (more[k]["peak_mem_gib"], more[k]["fwd_bwd_gib"])
                for k in ("no_remat", "remat_attn", "remat_attn_mlp")}}
     emit({"phase": "train", "small_check": small, "small_check_flow": small_flow,
           "small_check_more": small_more, "main": main, "fused_optimizer": fused,
           "flow": flow, "loss_second_moment": lsm, **more, "native_loader": native,
-          "peak_and_fwd_bwd_gib_by_remat": peak})
+          "peak_and_fwd_bwd_gib_by_remat": {"depth": CUT_DEPTH, **peak}})
     return {"train": main_launches, "train_fused_optimizer": fused_launches,
             "train_flow": flow_launches, "train_loss_second_moment": lsm_launches,
             **more_launches, "train_native_loader": native_launches}
@@ -1351,6 +1454,11 @@ def _spawn_ranks(n, fn, timeout=PAR_TIMEOUT, **kwargs):
     environment with LOCAL_RANK 0 for all, a free local port) over gloo:
     NCCL refuses two ranks on one GPU. Returns the ranks' results. Every
     kernel is built before (phase `build`), so no rank runs nvcc."""
+    return _wait_ranks(_start_ranks(n, fn, timeout, **kwargs))
+
+
+def _start_ranks(n, fn, timeout=PAR_TIMEOUT, **kwargs):
+    """`_spawn_ranks`' processes started; `_wait_ranks` collects them."""
     d = os.path.join(OUT_DIR, f"ranks-{fn}-{n}-{time.time_ns()}")
     os.makedirs(d)
     job = os.path.join(d, "job.pt")
@@ -1372,7 +1480,19 @@ def _spawn_ranks(n, fn, timeout=PAR_TIMEOUT, **kwargs):
                                    "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
                                    "MASTER_PORT": port},
                               stdout=logs[r], stderr=subprocess.STDOUT) for r in range(n)]
-    deadline = time.monotonic() + timeout
+    return n, fn, d, procs, logs, time.monotonic() + timeout
+
+
+def _kill_ranks(started):
+    """Kill those of `_start_ranks`' processes still running."""
+    for p in started[3]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _wait_ranks(started):
+    n, fn, d, procs, logs, deadline = started
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -1490,16 +1610,28 @@ def _par_small_checks():
     """Each small route in a world of 2 or 4 ranks on the card against one
     process on the card: losses and gradient norm, and every tensor of the
     gathered checkpoint tree, to the CPU tests' limits; ranks holding the
-    same part of a parameter hold the same bytes."""
-    out = {}
+    same part of a parameter hold the same bytes. The worlds run at once,
+    and beside them the references; world_<n>_s is the seconds from their
+    start to world n's results."""
+    out, worlds, results, wants = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for n, routes in PAR_SMALL.items():
+            worlds[n] = _start_ranks(n, "par_small_ranks", routes=routes)
+        for routes in PAR_SMALL.values():  # the one-process references meanwhile
+            for r in routes:
+                wants[r["name"]] = _par_small_route(r, False)
+                wants[r["name"]]["tree"] = _to_host(wants[r["name"]]["tree"])
+        for n in PAR_SMALL:
+            results[n] = _wait_ranks(worlds[n])
+            out[f"world_{n}_s"] = time.perf_counter() - t0
+    finally:
+        for started in worlds.values():
+            _kill_ranks(started)
     for n, routes in PAR_SMALL.items():
-        routes = [dict(r, name=r["name"]) for r in routes]
-        t0 = time.perf_counter()
-        ranks = _spawn_ranks(n, "par_small_ranks", routes=routes)
-        world_s = time.perf_counter() - t0
+        ranks = results[n]
         for r in routes:
-            want = _par_small_route(r, False)
-            want["tree"] = _to_host(want["tree"])
+            want = wants.pop(r["name"])
             res = [rk[r["name"]] for rk in ranks]
             bf16_grads = bool(r.get("state"))
             loss_err = 0.0
@@ -1535,11 +1667,10 @@ def _par_small_checks():
             out[r["name"]] = {"ranks": n, "metric_max_rel_err": loss_err,
                               "param_ema_max_abs_err": worst,
                               "losses": [m["loss"] for m in res[0]["metrics"]]}
-        out[f"world_{n}_s"] = world_s
     return out
 
 
-def _par_full_run(name, flags, depth_cut=None):
+def _par_full_run(name, flags):
     """A rank's side of one full-width route: the trainer CLI's own
     functions on the world's mesh, PAR_WARMUP steps, then PAR_STEPS timed
     steps under sync debug mode "error" (the gloo collectives exempt) with
@@ -1549,10 +1680,6 @@ def _par_full_run(name, flags, depth_cut=None):
 
     from fast_dit_torch.parallel import collectives
     world = dist.get_world_size()
-    if depth_cut is not None:
-        model_name, depth = depth_cut
-        DiT_models[f"{model_name}-depth{depth}"] = functools.partial(DiT_models[model_name],
-                                                                     depth=depth)
     args = train_cli.parse_args(flags)
     train_cli.check_args(args, world)
     torch.cuda.reset_peak_memory_stats()
@@ -1618,20 +1745,23 @@ def _par_full_run(name, flags, depth_cut=None):
            "checksum": checksum, "coords": (mesh.data_rank, mesh.axis_rank(mesh.inner))}
     del model, state, train_step, batch
     torch.cuda.empty_cache()
-    if depth_cut is not None:
-        del DiT_models[f"{depth_cut[0]}-depth{depth_cut[1]}"]
     return row
 
 
 def par_full_ranks(routes):
-    """A rank's side of the full-width routes, in order."""
-    return {name: _par_full_run(name, flags, cut) for name, flags, cut in routes}
+    """A rank's side of the full-width routes, in order, each (name, flags,
+    (model, depth)) with its model cut to that depth."""
+    out = {}
+    for name, flags, cut in routes:
+        with cut_depth(*cut) as model_name:
+            out[name] = _par_full_run(name, ["--model", model_name, *flags])
+    return out
 
 
 def _par_cli_nccl():
     """The trainer CLI's `main` in a world of one rank over NCCL (RANK=0,
-    WORLD_SIZE=1, a free local port): DiT-XL/2, 2 steps, with its final
-    checkpoint."""
+    WORLD_SIZE=1, a free local port): DiT-XL/2 cut to PAR_DEPTH, 2 steps,
+    with its final checkpoint."""
     port = _free_port()
     results = os.path.join(OUT_DIR, "par_cli")
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
@@ -1641,8 +1771,10 @@ def _par_cli_nccl():
     t0 = time.perf_counter()
     _build.reset_launch_counts()
     try:
-        train_cli.main(train_cli.parse_args(TRAIN_ARGS + [
-            "--max-steps", "2", "--log-every", "1", "--results-dir", results]))
+        with cut_depth("DiT-XL/2", PAR_DEPTH) as model_name:
+            train_cli.main(train_cli.parse_args(["--model", model_name, *TRAIN_ARGS[2:],
+                                                 "--max-steps", "2", "--log-every", "1",
+                                                 "--results-dir", results]))
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1658,8 +1790,8 @@ def _par_cli_nccl():
             os.path.join(results, exp, "checkpoints", "0000002.pt")):
         raise AssertionError(f"the CLI over NCCL at world 1: log\n{log}")
     shutil.rmtree(results, ignore_errors=True)
-    return {"backend": "nccl", "world": 1, "model": "DiT-XL/2", "steps": 2, "seconds": seconds,
-            "launches": launches}, launches
+    return {"backend": "nccl", "world": 1, "model": "DiT-XL/2", "depth": PAR_DEPTH, "steps": 2,
+            "seconds": seconds, "launches": launches}, launches
 
 
 def phase_train_parallel():
@@ -1674,31 +1806,20 @@ def phase_train_parallel():
     small = _par_small_checks()
     # the one-process references of the full-width routes (same seed, batch)
     refs = {}
-    for key, flags, cut in [("xl2", ["--fused-optimizer"], None),
-                            ("moe", ["--fused-optimizer"], (MOE_MODEL, PAR_EP_DEPTH))]:
-        base = TRAIN_ARGS if cut is None else ["--model", f"{cut[0]}-depth{cut[1]}",
-                                               *TRAIN_ARGS[2:]]
-        if cut is not None:
-            DiT_models[base[1]] = functools.partial(DiT_models[cut[0]], depth=cut[1])
-        try:
-            row, _ = _train_run(flags, warmup=PAR_WARMUP, steps=PAR_STEPS, base=base)
-        finally:
-            if cut is not None:
-                del DiT_models[base[1]]
-        refs[key] = row
-    routes = []
-    for name, flags in PAR_FULL:
-        routes.append((name, TRAIN_ARGS + flags, None))
-    ep_model = f"{MOE_MODEL}-depth{PAR_EP_DEPTH}"
-    routes.append(("ep2", ["--model", ep_model, *TRAIN_ARGS[2:], "--fused-optimizer", "--ep",
-                           "2"], (MOE_MODEL, PAR_EP_DEPTH)))
+    for key, cut in [("xl2", ("DiT-XL/2", PAR_DEPTH)), ("moe", (MOE_MODEL, PAR_EP_DEPTH))]:
+        with cut_depth(*cut) as model_name:
+            refs[key], _ = _train_run(["--fused-optimizer"], warmup=PAR_WARMUP, steps=PAR_STEPS,
+                                      base=["--model", model_name, *TRAIN_ARGS[2:]])
+    routes = [(name, TRAIN_ARGS[2:] + flags, ("DiT-XL/2", PAR_DEPTH)) for name, flags in PAR_FULL]
+    routes.append(("ep2", [*TRAIN_ARGS[2:], "--fused-optimizer", "--ep", "2"],
+                   (MOE_MODEL, PAR_EP_DEPTH)))
     t0 = time.perf_counter()
     ranks = _spawn_ranks(2, "par_full_ranks", routes=routes)
     full_s = time.perf_counter() - t0
     full, launches = {}, {}
     for name, _, cut in routes:
         rows = [r[name] for r in ranks]
-        ref = refs["moe" if cut else "xl2"]
+        ref = refs["moe" if cut[0] == MOE_MODEL else "xl2"]
         rel = max(abs(a - b) / abs(b) for row in rows for a, b in zip(row["losses"],
                                                                       ref["losses"]))
         if not rel <= PAR_LOSS_RTOL:
@@ -1957,7 +2078,8 @@ def _seq_small_check():
 
 
 def _seq_model(dtype):
-    model = DiT_models["DiT-XL/2"](input_size=64, dtype=dtype, device="cuda", seed=0)
+    model = DiT_models["DiT-XL/2"](input_size=64, depth=SEQ_DEPTH, dtype=dtype, device="cuda",
+                                   seed=0)
     cli.perturb_(model)
     return model.eval()
 
@@ -2116,13 +2238,466 @@ def phase_seq_parallel(steps, profile_table):
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if profile_table:
         grad["profile"] = grad_profile
-    emit({"phase": "seq_parallel", "model": "DiT-XL/2", "image_size": 512, "tokens": 1024,
+    emit({"phase": "seq_parallel", "model": "DiT-XL/2", "depth": SEQ_DEPTH, "image_size": 512,
+          "tokens": 1024,
           "ring": f"LocalRing({SEQ_N})", "shard_tokens": 1024 // SEQ_N, "small_check": small,
           "forward": fwd, "sample": sample, "grad": grad})
     model.zero_grad(set_to_none=True)
     del model, params
     torch.cuda.empty_cache()
     return sample_launches, grad_launches
+
+
+# -- 16, 17. pipeline and pipefusion: GPipe and patch-pipelined sampling -----
+
+def _grad_leaves(model, forward):
+    """{name: gradient} of mean(out^2) through `forward(model)`."""
+    model.zero_grad(set_to_none=True)
+    forward(model).float().square().mean().backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _leaf_errors(got, want, rtol):
+    """(worst error over max |g| and its leaf, the leaves past `rtol` x
+    max |g| or not finite or all zero where the reference is not)."""
+    worst, bad = (0.0, None), []
+    for n, b in want.items():
+        a, peak = got[n], b.abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        if peak > 0 and err / peak >= worst[0]:
+            worst = (err / peak, n)
+        if (not torch.isfinite(a).all() or err > rtol * peak
+                or (peak > 0 and not a.abs().max().item() > 0)):
+            bad.append((n, err, peak))
+    return worst, bad
+
+
+def _pipeline_small_check():
+    """A small fp32 DiT-S/2 (depth 4) through LocalStages(2), 2 microbatches,
+    on the card (kernels 1 and 2) and the CPU (their plain versions): output
+    and every gradient within 1e-4 of max, launches exact."""
+    from fast_dit_torch.parallel import LocalStages, dit_pipeline_forward
+    g = torch.Generator().manual_seed(11)
+    x, t = torch.randn(8, 4, 16, 16, generator=g), torch.tensor([1, 50, 500, 999] * 2)
+    y = torch.tensor([1, 7, 1000, 3] * 2)
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = DiT_models["DiT-S/2"](input_size=16, depth=4, device=device, seed=0)
+        cli.perturb_(model)
+        fwd = lambda m: dit_pipeline_forward(m, x.to(device), t.to(device), y.to(device),
+                                             LocalStages(2), 2)
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            out = fwd(model).cpu()
+        grads = _grad_leaves(model, fwd)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res[device] = (out, {n: v.cpu() for n, v in grads.items()}, dict(_build.launch_counts))
+    (out, grads, launches), (want, want_grads, _) = res["cuda"], res["cpu"]
+    err, peak = (out - want).abs().max().item(), want.abs().max().item()
+    worst, bad = _leaf_errors(grads, want_grads, 1e-4)
+    if not (err <= 1e-4 * peak and not bad and launches["attention_fwd"] == 2 * 4 * 2
+            and launches["attention_bwd"] == 4 * 2):
+        raise AssertionError(f"small pipelined DiT card vs CPU: output err {err} > 1e-4 x "
+                             f"{peak}, leaves off {bad[:3]}, or launches {launches} != 16 "
+                             "forward (inference, then the gradient's) and 8 backward")
+    return {"max_abs_err": err, "tol": 1e-4 * peak, "worst_leaf_rel_err": worst[0]}
+
+
+def _xl_bf16():
+    """DiT-XL/2 256², bf16 compute over fp32 parameters, seed 0 and the
+    sampler's perturbation: the same weights in every process."""
+    model = DiT_models["DiT-XL/2"](input_size=32, dtype=torch.bfloat16, device="cuda", seed=0)
+    cli.perturb_(model)
+    return model
+
+
+def _pipe_inputs():
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(PIPE_BATCH, 4, 32, 32, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (PIPE_BATCH,), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (PIPE_BATCH,), generator=g, device="cuda")
+    return x, t, y
+
+
+def _wall_ms(fn, iters=PIPE_ITERS):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _pipeline_full(model):
+    """DiT-XL/2 bf16 over LocalStages(PIPE_STAGES): forward and gradient
+    against the unpipelined model, launches, times, peak memory."""
+    from fast_dit_torch.parallel import LocalStages, dit_pipeline_forward
+    x, t, y = _pipe_inputs()
+    stages = LocalStages(PIPE_STAGES)
+    pipe = lambda m: dit_pipeline_forward(m, x, t, y, stages, PIPE_MICRO)
+    plain = lambda m: m(x, t, y)
+    n = model.depth * PIPE_MICRO
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        got = pipe(model)
+        torch.cuda.synchronize()
+        fwd_launches = dict(_build.launch_counts)
+        want = plain(model)
+    err, peak = (got - want).abs().max().item(), want.abs().max().item()
+    if not (tuple(got.shape) == (PIPE_BATCH, 8, 32, 32) and torch.isfinite(got).all()
+            and err <= 2e-2 * peak):
+        raise AssertionError(f"pipelined XL/2 forward vs unpipelined: {err} > 2e-2 x {peak}")
+    if fwd_launches != {**{k: 0 for k in fwd_launches}, "attention_fwd": n}:
+        raise AssertionError(f"pipelined forward launches {fwd_launches}, expected "
+                             f"attention_fwd = depth x M = {n}")
+    del got, want
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    g_pipe = _grad_leaves(model, pipe)
+    torch.cuda.synchronize()
+    grad_launches = dict(_build.launch_counts)
+    pipe_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if grad_launches != {**{k: 0 for k in grad_launches}, "attention_fwd": n,
+                         "attention_bwd": n}:
+        raise AssertionError(f"pipelined forward + backward launches {grad_launches}, "
+                             f"expected depth x M = {n} of kernels 1 and 2")
+    torch.cuda.reset_peak_memory_stats()
+    g_plain = _grad_leaves(model, plain)
+    plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worst, bad = _leaf_errors(g_pipe, g_plain, PIPE_GRAD_RTOL)
+    leaves = len(g_plain)
+    if bad or len(g_pipe) != leaves:
+        raise AssertionError(f"pipelined XL/2 gradient vs unpipelined, {len(bad)} leaves off "
+                             f"(name, max abs err, max |g|): {bad[:5]}")
+    del g_pipe, g_plain
+
+    def step(forward):
+        def run():
+            model.zero_grad(set_to_none=True)
+            forward(model).float().square().mean().backward()
+        return run
+
+    def infer(forward):
+        def run():
+            with torch.inference_mode():
+                forward(model)
+        return run
+
+    # wall ms (the mean of PIPE_ITERS runs) and the profiler's device busy ms
+    # and idle share of one run: a step issues thousands of launches, more
+    # than the device's queue holds, so cuda_ms's spin cannot hide the host
+    times = {}
+    for name, run in (("forward", infer(pipe)), ("plain_forward", infer(plain)),
+                      ("step", step(pipe)), ("plain_step", step(plain))):
+        prof = profile_device(run, os.path.join(OUT_DIR, f"profile_pipeline_{name}.txt"), name)
+        times[name] = {"wall_ms": _wall_ms(run), "device_busy_ms": prof["device_busy_ms"],
+                       "idle_share": prof["idle_share"],
+                       "attention_kernels_ms": prof["attention_kernels_ms"],
+                       "top": prof["top"][:4]}
+    model.zero_grad(set_to_none=True)
+    return fwd_launches, grad_launches, {
+        "forward": {"max_abs_err": err, "max_abs_out": peak, "tol": 2e-2 * peak,
+                    "launches": fwd_launches},
+        "grad": {"loss": "mean(out^2)", "leaves": leaves, "worst_leaf_rel_err": worst[0],
+                 "worst_leaf": worst[1], "tol_rel": PIPE_GRAD_RTOL, "launches": grad_launches},
+        "peak_mem_gib": pipe_peak, "plain_peak_mem_gib": plain_peak, "times": times}
+
+
+def _small_pipe_model():
+    """The process stages' model: DiT-S/2 256² (256 tokens, hd 64), fp32,
+    depth PIPE_RANK_DEPTH, seed 0 and the sampler's perturbation: the same
+    weights in every process."""
+    model = DiT_models["DiT-S/2"](input_size=32, depth=PIPE_RANK_DEPTH, device="cuda", seed=0)
+    cli.perturb_(model)
+    return model
+
+
+def stage_rank():
+    """A rank's side of the process stages (PIPE_RANKS ranks on cuda:0 over
+    gloo, `_small_pipe_model`): the references first, with every block, over
+    LocalStages of the world's size (the pipelined forward and gradient of
+    PIPE_RANK_BATCH rows in PIPE_MICRO microbatches; the PipeFusion chain,
+    PF_RANK_STEPS DDIM steps with CFG 4.0 over 4 labels, PF_CHUNKS chunks
+    after PF_WARMUP exact); then the other stages' blocks are dropped and
+    the same paths run over ProcessGroupStages, their launches counted from
+    0 and their transport timed; returns the errors against the references,
+    the counts and times."""
+    import torch.distributed as dist
+
+    from fast_dit_torch.parallel import (LocalStages, ProcessGroupStages, collectives,
+                                         dit_pipeline_forward, pipefusion_sample_loop)
+    from fast_dit_torch.parallel.pipeline import keep_own_blocks, stage_slice
+    stages = ProcessGroupStages()
+    local = LocalStages(stages.size)
+    model = _small_pipe_model()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(PIPE_RANK_BATCH, 4, 32, 32, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (PIPE_RANK_BATCH,), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (PIPE_RANK_BATCH,), generator=g, device="cuda")
+    z = torch.randn(4, 4, 32, 32, generator=g, device="cuda")
+    labels = torch.tensor([0, 3, 7, 999], device="cuda")
+    sched = create_diffusion(f"ddim{PF_RANK_STEPS}", device="cuda").schedule
+    chain = lambda st: pipefusion_sample_loop(model, z.shape, sched, labels, st, PF_CHUNKS,
+                                              warmup=PF_WARMUP, noise=z, cfg_scale=4.0)
+    pipe = lambda m, st: dit_pipeline_forward(m, x, t, y, st, PIPE_MICRO)
+    with torch.inference_mode():
+        want = pipe(model, local)
+        want_chain = chain(local)
+    g_want = _grad_leaves(model, lambda m: pipe(m, local))
+    own = range(model.depth)[stage_slice(model.depth, stages, stages.rank)]
+    g_want = {n: v for n, v in g_want.items()
+              if not n.startswith("blocks.") or int(n.split(".")[1]) in own}
+    model.zero_grad(set_to_none=True)
+    keep_own_blocks(model, stages)
+
+    def timed_run(run):
+        collectives.exempt_ranges.update(count=0, seconds=0.0)
+        _build.reset_launch_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3, dict(_build.launch_counts),
+                dict(collectives.exempt_ranges))
+
+    with torch.inference_mode():
+        got, fwd_ms, fwd_launches, fwd_transport = timed_run(lambda: pipe(model, stages))
+    g_got, step_ms, step_launches, step_transport = timed_run(
+        lambda: _grad_leaves(model, lambda m: pipe(m, stages)))
+    with torch.inference_mode():
+        got_chain, chain_ms, chain_launches, chain_transport = timed_run(lambda: chain(stages))
+    worst, bad = _leaf_errors(g_got, g_want, PIPE_RANK_GRAD_RTOL)
+    return {"rank": stages.rank, "blocks": [own.start, own.stop], "ring": _ring_rotate(),
+            "forward_err": (got - want).abs().max().item(), "forward_peak": want.abs().max().item(),
+            "grad_leaves": len(g_got), "grad_leaves_want": len(g_want),
+            "grad_worst_rel_err": worst[0], "grad_worst_leaf": worst[1], "grad_bad": bad[:5],
+            "chain": got_chain.cpu(), "chain_err": (got_chain - want_chain).abs().max().item(),
+            "chain_peak": want_chain.abs().max().item(),
+            "forward_ms": fwd_ms, "step_ms": step_ms, "chain_ms": chain_ms,
+            "forward_launches": fwd_launches, "step_launches": step_launches,
+            "chain_launches": chain_launches, "forward_transport": fwd_transport,
+            "step_transport": step_transport, "chain_transport": chain_transport}
+
+
+def _ring_rotate():
+    """The sequence-parallel ring's hand-off on CUDA tensors over gloo (host
+    buffers): rank r gets rank r - 1's block, and the backward hands the
+    cotangent back; fp32 and bf16. {dtype: equal}."""
+    from fast_dit_torch.parallel import ProcessGroupRing
+    ring = ProcessGroupRing()
+    ok = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        v = torch.full((4, 256, 1152), ring.rank + 1.0, dtype=dtype, device="cuda",
+                       requires_grad=True)
+        got = ring.rotate(v)
+        (got.float() * (ring.rank + 1)).sum().backward()
+        ok[_dtype_name(dtype)] = bool(
+            torch.equal(got, torch.full_like(v, (ring.rank - 1) % ring.size + 1.0))
+            and torch.equal(v.grad, torch.full_like(v, (ring.rank + 1) % ring.size + 1.0)))
+    return ok
+
+
+def _check_stage_rows(rows):
+    """The process stages' rows (`stage_rank`), checked against one process
+    at fp32 limits: forward and chain within 1e-5 x max and the chain equal
+    between the ranks, every gradient leaf a rank holds within
+    PIPE_RANK_GRAD_RTOL x max of LocalStages' (blocks on their own rank
+    only); launches exact per rank (kernel 1 depth / P x M in the forward
+    and again in the gradient's forward, kernel 2 depth / P x M; none in the
+    chain), the ring's hand-off exact."""
+    n = PIPE_RANK_DEPTH // PIPE_RANKS * PIPE_MICRO
+    for r in rows:
+        zero = lambda d: {k: 0 for k in d}
+        r["chain_rank0_err"] = (r["chain"] - rows[0]["chain"]).abs().max().item()
+        if not (r["forward_err"] <= 1e-5 * r["forward_peak"] and not r["grad_bad"]
+                and r["grad_leaves"] == r["grad_leaves_want"]
+                and r["chain_err"] <= 1e-5 * r["chain_peak"]
+                and r["chain_rank0_err"] <= 1e-5 * r["chain_peak"]):
+            raise AssertionError(f"process stage {r['rank']} vs LocalStages: forward "
+                                 f"{r['forward_err']}, leaves off {r['grad_bad']} "
+                                 f"({r['grad_leaves']} of {r['grad_leaves_want']}), chain "
+                                 f"{r['chain_err']} or unequal between ranks")
+        want = [{**zero(r["forward_launches"]), "attention_fwd": n},
+                {**zero(r["step_launches"]), "attention_fwd": n, "attention_bwd": n},
+                zero(r["chain_launches"])]
+        if not all(r["ring"].values()):
+            raise AssertionError(f"ProcessGroupRing's hand-off on rank {r['rank']}: {r['ring']}")
+        got = [r["forward_launches"], r["step_launches"], r["chain_launches"]]
+        if got != want:
+            raise AssertionError(f"process stage {r['rank']} launches {got}, expected {want}")
+    for r in rows:
+        r["chain_abs_mean"] = r.pop("chain").abs().mean().item()
+    return rows
+
+
+def phase_pipeline():
+    """GPipe over the block stack; see the module docstring (16). The
+    process stages start first and run beside the small check and the
+    DiT-XL/2 build; the timed part runs after they end. Returns (the XL/2
+    model, the forward's and the gradient's launches, the ranks' launches
+    summed, the ranks' rows)."""
+    t0 = time.perf_counter()
+    started = _start_ranks(PIPE_RANKS, "stage_rank")
+    try:
+        small = _pipeline_small_check()
+        t1 = time.perf_counter()
+        model = _xl_bf16()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        rows = _check_stage_rows(_wait_ranks(started))
+    finally:
+        _kill_ranks(started)
+    ranks_s = time.perf_counter() - t0
+    fwd_launches, grad_launches, full = _pipeline_full(model)
+    kernels = {name: {k: KERNEL_ROWS[name, PIPE_SHAPE, torch.bfloat16, False][k]
+                      for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+               for name in ("attention_fwd", "attention_bwd")}
+    rank_launches = collections.Counter()
+    for r in rows:
+        rank_launches.update(r["forward_launches"])
+        rank_launches.update(r["step_launches"])
+    emit({"phase": "pipeline", "model": "DiT-XL/2", "image_size": 256, "dtype": "bfloat16",
+          "batch": PIPE_BATCH, "microbatches": PIPE_MICRO,
+          "stages": f"LocalStages({PIPE_STAGES})", "blocks_per_stage": model.depth // PIPE_STAGES,
+          "small_check": small, "build_s": build_s, **full,
+          "kernels_at_microbatch_shape": {"shape": list(PIPE_SHAPE), **kernels},
+          "ranks": {"stages": f"ProcessGroupStages over {PIPE_RANKS} gloo ranks on one card",
+                    "model": f"DiT-S/2 256², fp32, depth {PIPE_RANK_DEPTH}",
+                    "batch": PIPE_RANK_BATCH, "microbatches": PIPE_MICRO,
+                    "scaling": "no scaling number: the ranks share one card and gloo's "
+                               "host transport", "seconds_to_results": ranks_s,
+                    "rows": [{k: v for k, v in r.items() if not k.startswith("chain")}
+                             for r in rows]}})
+    return model, fwd_launches, grad_launches, dict(rank_launches), rows
+
+
+def _pf_inputs():
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n = len(cli.CLASS_LABELS)
+    return (torch.randn(n, 4, 32, 32, generator=g, device="cuda"),
+            torch.tensor(cli.CLASS_LABELS, device="cuda"))
+
+
+def _pipefusion_small_check():
+    """The CPU tests' tiny DiT (depth 8, width 32, fp32), a chunked DDIM 5
+    chain with CFG over LocalStages(4), 4 chunks after 1 exact step, on the
+    card and the CPU: within 1e-4 of max."""
+    from fast_dit_torch.models import DiT
+    from fast_dit_torch.parallel import LocalStages, pipefusion_sample_loop
+    z = torch.randn(4, 4, 8, 8, generator=torch.Generator().manual_seed(14))
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = DiT(input_size=8, patch_size=2, hidden_size=32, depth=8, num_heads=4,
+                    num_classes=10, device=device, seed=0)
+        cli.perturb_(model, std=0.05)
+        with torch.inference_mode():
+            outs.append(pipefusion_sample_loop(
+                model, z.shape, create_diffusion("ddim5", device=device).schedule,
+                torch.tensor([0, 3, 7, 9], device=device), LocalStages(4), 4, warmup=1,
+                noise=z.to(device), cfg_scale=4.0).cpu())
+    err, peak = (outs[0] - outs[1]).abs().max().item(), outs[1].abs().max().item()
+    if not (torch.isfinite(outs[0]).all() and err <= 1e-4 * peak):
+        raise AssertionError(f"small PipeFusion chain card vs CPU: {err} > 1e-4 x {peak}")
+    return {"max_abs_err": err, "tol": 1e-4 * peak}
+
+
+def phase_pipefusion(model, rank_rows):
+    """PipeFusion sampling; see the module docstring (17). `rank_rows` are
+    the process stages' rows of phase `pipeline`, whose chains ran there.
+    Returns the PipeFusion chains' launches, summed."""
+    from fast_dit_torch.parallel import (LocalStages, init_kv_cache, pipefusion_forward,
+                                         pipefusion_sample_loop)
+    small = _pipefusion_small_check()
+    model.eval()
+    z, y = _pf_inputs()
+    n = len(y)
+    diffusion = create_diffusion(f"ddim{PF_STEPS}", device="cuda")
+    yy = torch.cat([y, torch.full_like(y, model.num_classes)])
+    stages = LocalStages(PF_STAGES)
+    chains = {}
+
+    def run(name, fn, sync_free=True):
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        if sync_free:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        loop_s = time.perf_counter() - t0
+        chains[name] = {"loop_s": loop_s, "s_per_step": loop_s / PF_STEPS,
+                        "images_per_s": n / loop_s, "launches": dict(_build.launch_counts),
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        return out
+
+    ddim = lambda: diffusion.ddim_sample_loop(
+        lambda x, t: model.forward_with_cfg(x, t, yy, 4.0), (2 * n, 4, 32, 32),
+        noise=torch.cat([z, z]))[:n]
+    exact = run("ddim_forward_with_cfg", ddim)
+    # the yardstick of two exact bf16 chains: the same chain with the plain
+    # attention (fp32 softmax) in place of kernel 1
+    for blk in model.blocks:
+        blk.attn.attn_backend = "einsum"
+    plain = run("ddim_forward_with_cfg_plain_attention", ddim)
+    for blk in model.blocks:
+        blk.attn.attn_backend = "auto"
+    pf = lambda chunks: pipefusion_sample_loop(model, z.shape, diffusion.schedule, y, stages,
+                                               chunks, warmup=PF_WARMUP, noise=z, cfg_scale=4.0)
+    one = run("pipefusion_1_chunk", lambda: pf(1))
+    chunked = run(f"pipefusion_{PF_CHUNKS}_chunks", lambda: pf(PF_CHUNKS))
+    # the one-chunk forward itself against the model's, at the first step
+    xx = torch.cat([z, z])
+    tt = torch.full((2 * n,), diffusion.schedule.timestep_map_host[-1], device="cuda")
+    with torch.inference_mode():
+        f_one = pipefusion_forward(model, xx, tt, yy, init_kv_cache(model, 2 * n), stages, 1)[0]
+        f_model = model(xx, tt, yy)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    fwd_err, fwd_peak = (f_one - f_model).abs().max().item(), f_model.abs().max().item()
+    one_rel, plain_rel, chunked_rel = rel(one, exact), rel(plain, exact), rel(chunked, exact)
+    del f_one, f_model
+    want_exact = model.depth * PF_STEPS
+    launches = {k: c["launches"] for k, c in chains.items()}
+    kv = init_kv_cache(model, 2 * n)
+    rank_rows = [{k: r[k] for k in ("rank", "chain_err", "chain_peak", "chain_rank0_err",
+                                    "chain_ms", "chain_transport", "chain_abs_mean")}
+                 for r in rank_rows]
+    emit({"phase": "pipefusion", "model": "DiT-XL/2", "image_size": 256, "dtype": "bfloat16",
+          "cfg_scale": 4.0, "labels": n, "batch": 2 * n, "sampler": "ddim", "steps": PF_STEPS,
+          "stages": f"LocalStages({PF_STAGES})", "chunks": PF_CHUNKS,
+          "chunk_tokens": 256 // PF_CHUNKS, "warmup": PF_WARMUP, "small_check": small,
+          "one_chunk_forward": {"max_abs_err": fwd_err, "max_abs_out": fwd_peak,
+                                "tol": 2e-2 * fwd_peak},
+          "one_chunk_chain": {"max_abs_err": (one - exact).abs().max().item(),
+                              "rel_distance": one_rel, "tol_rel": 2e-2},
+          "plain_attention_chain_rel_distance": plain_rel,
+          "chunked_rel_distance": chunked_rel, "kv_cache_shape": list(kv.shape),
+          "kv_cache_gib": kv.numel() * kv.element_size() / 2 ** 30, "chains": chains,
+          "ranks": {"stages": f"ProcessGroupStages over {PIPE_RANKS} gloo ranks on one card",
+                    "steps": PF_RANK_STEPS, "rows": rank_rows}})
+    if not (torch.isfinite(one).all() and torch.isfinite(chunked).all()
+            and tuple(chunked.shape) == (n, 4, 32, 32) and fwd_err <= 2e-2 * fwd_peak
+            and one_rel <= 2e-2):
+        raise AssertionError(f"PipeFusion XL/2, one chunk vs the model: forward {fwd_err} > "
+                             f"2e-2 x {fwd_peak}, or the chain's relative distance from DDIM "
+                             f"over forward_with_cfg {one_rel} > 2e-2, or a chain not finite")
+    if (launches["ddim_forward_with_cfg"]["attention_fwd"] != want_exact
+            or any(v for k, c in launches.items() if k.startswith("pipefusion")
+                   for v in c.values())):
+        raise AssertionError(f"launches {launches}: expected kernel 1 depth x steps = "
+                             f"{want_exact} in the DDIM chain and none in PipeFusion's (SDPA)")
+    del kv
+    # the path's launches, summed over its chains: 0 of every kernel
+    return {k: sum(c[k] for name, c in launches.items() if name.startswith("pipefusion"))
+            for k in launches["ddim_forward_with_cfg"]}
 
 
 def random_vae_state_dict(channels=VAE_CHANNELS, latent=4, seed=0):
@@ -2368,16 +2943,32 @@ def _profile_chain(args, model, table_path):
     return profile_device(run, table_path, f"{args.sampler} chain, {PROFILE_STEPS} steps")
 
 
-def _option_chains(chains, steps, exact, profile_root):
-    """Each (name, flags) chain of DiT-XL/2 at cell 1's shape (256², bf16,
-    CFG 4.0, 8 labels, DDPM `steps`) through the sampler CLI's functions,
-    model built by `build_model`, launches exact (depth x refresh steps),
-    profiled over `PROFILE_STEPS` steps (busy ms, idle share), and its
-    final latents against `exact`, the chain of phase `sample` with the
-    same weights and noise."""
+def _exact_chain(steps, model_name):
+    """The final latents of `model_name`'s exact chain at cell 1's shape
+    (256², bf16, CFG 4.0, 8 labels, DDPM `steps`) through the sampler CLI's
+    functions: the yardstick of the ToMe and W8A8 chains of that model."""
+    args = cli.parse_args(["--model", model_name, *SAMPLER_ARGS[2:],
+                           "--num-sampling-steps", str(steps)])
+    cli.check_args(args)
+    model = cli.build_model(args, torch.device("cuda"), args.seed)
+    _, _, latents = _sampler_chain(args, model, cli.build_diffusion(args, torch.device("cuda")),
+                                   steps)
+    del model
+    torch.cuda.empty_cache()
+    return latents
+
+
+def _option_chains(chains, steps, exact, profile_root, model_name):
+    """Each (name, flags) chain of `model_name` (DiT-XL/2 cut to CUT_DEPTH)
+    at cell 1's shape (256², bf16, CFG 4.0, 8 labels, DDPM `steps`) through
+    the sampler CLI's functions, model built by `build_model`, launches
+    exact (depth x refresh steps), profiled over `PROFILE_STEPS` steps (busy
+    ms, idle share), and its final latents against `exact`, the exact
+    chain of the same model with the same weights and noise."""
     rows, launches = {}, {}
     for name, flags in chains:
-        args = cli.parse_args(SAMPLER_ARGS + ["--num-sampling-steps", str(steps)] + flags)
+        args = cli.parse_args(["--model", model_name, *SAMPLER_ARGS[2:],
+                               "--num-sampling-steps", str(steps)] + flags)
         cli.check_args(args)
         t0 = time.perf_counter()
         model = cli.build_model(args, torch.device("cuda"), args.seed)
@@ -2387,7 +2978,8 @@ def _option_chains(chains, steps, exact, profile_root):
         row, launches[name], latents = _sampler_chain(
             args, model, diffusion, steps, refreshes=_refresh_steps(args, diffusion))
         row.update(profile=_profile_chain(args, model, f"{profile_root}_{name}.txt"),
-                   model_build_s=build_s, tome_r=model.tome_r, quant=model.quant,
+                   depth=model.depth, model_build_s=build_s, tome_r=model.tome_r,
+                   quant=model.quant,
                    tome_mlp=model.tome_mlp,
                    max_abs_diff_vs_exact=(latents - exact).abs().max().item(),
                    exact_max_abs=exact.abs().max().item())
@@ -2397,11 +2989,11 @@ def _option_chains(chains, steps, exact, profile_root):
     return rows, launches
 
 
-def phase_tome(steps, exact, profile_root):
+def phase_tome(steps, exact, profile_root, model_name):
     """Token merging: kernel 1 against its plain version at the ragged
     lengths ToMe makes (S = 256 - r: 180 at ratio 0.3, 128 at 0.5), fp32
     and bf16; small fp32 models card vs CPU; then the ToMe chains of
-    DiT-XL/2 (`TOME_CHAINS`). ToMe approximates: the drift against the
+    `model_name` (`TOME_CHAINS`). ToMe approximates: the drift against the
     exact chain is recorded, not bounded. Returns {chain: launches}."""
     g = torch.Generator(device="cuda").manual_seed(9)
     kernel = [_kernel_row("tome", *shape, dtype, g) for shape in TOME_SHAPES
@@ -2410,9 +3002,9 @@ def phase_tome(steps, exact, profile_root):
         "DiT-S/2", {"tome_ratio": r, "tome_mlp": m}, cached=c)
         for r, m, c in ((0.3, False, False), (0.5, False, False), (0.5, True, False),
                         (0.5, False, True))}
-    rows, launches = _option_chains(TOME_CHAINS, steps, exact, profile_root)
+    rows, launches = _option_chains(TOME_CHAINS, steps, exact, profile_root, model_name)
     emit({"phase": "tome", "kernel": kernel, "small_check": small, "model": "DiT-XL/2",
-          "chains": rows})
+          "depth": CUT_DEPTH, "chains": rows})
     return launches
 
 
@@ -2446,9 +3038,9 @@ def _int8_gemms():
     return rows
 
 
-def phase_quant(steps, exact, profile_root):
+def phase_quant(steps, exact, profile_root, model_name):
     """W8A8: the int8 GEMM exact and timed (`_int8_gemms`); small fp32
-    quantised models card vs CPU; then the quantised chains of DiT-XL/2
+    quantised models card vs CPU; then the quantised chains of `model_name`
     (`QUANT_CHAINS`), with their drift against the bf16 chain. A quantised
     card-vs-CPU chain may part by more than rounding: a one-ulp difference
     before a quantiser can move an int8 code by one step (ROADMAP.md,
@@ -2457,9 +3049,9 @@ def phase_quant(steps, exact, profile_root):
     small = {"w8a8": _small_chain_check("DiT-S/2", {"quant": "w8a8"}, rtol=1e-2),
              "w8a8_cache2": _small_chain_check("DiT-S/2", {"quant": "w8a8"}, cached=True,
                                                rtol=1e-2)}
-    rows, launches = _option_chains(QUANT_CHAINS, steps, exact, profile_root)
+    rows, launches = _option_chains(QUANT_CHAINS, steps, exact, profile_root, model_name)
     emit({"phase": "quant", "int8_gemm": gemms, "small_check": small, "model": "DiT-XL/2",
-          "chains": rows})
+          "depth": CUT_DEPTH, "chains": rows})
     return launches
 
 
@@ -2514,23 +3106,11 @@ def _moe_small_train_check(steps=2):
             "moe_metrics": card["moe"], "losses": card["loss"]}
 
 
-def phase_moe(steps, profile_root):
-    """The DiT-MoE family: small models card vs CPU (a chain, two train
-    steps); kernel 3 against `_update_math` over the MoE tree at full width,
-    depth MOE_FU_DEPTH, both nu dtypes; DiT-MoE-XL/2-8E2A at full width and
-    depth sampling cell 1's chain through the sampler CLI's functions, with
-    the share of (token, choice) slots its capacity dropped; then the
-    trainer CLI's functions with --fused-optimizer (full depth) and with the
-    default AdamW route (depth cut to MOE_ADAMW_DEPTH), each 3 steps after 2
-    under sync debug mode "error". Returns {path: launches}."""
-    small_chain = _small_chain_check("DiT-MoE-S/2-8E2A", {})
-    small_train = _moe_small_train_check()
-    fu_rows = {_dtype_name(nu): phase_fused_update(nu_dtype=nu, model=MOE_MODEL,
-                                                   depth=MOE_FU_DEPTH, library=False,
-                                                   phase="moe_fused_update")
-               for nu in (torch.float32, torch.bfloat16)}
-    launches = {}
-    args = cli.parse_args(["--model", MOE_MODEL, "--ckpt", "random", "--bf16", "--cfg-scale",
+def _moe_sample(model_name, steps, profile_root):
+    """`model_name`'s chain at cell 1's shape through the sampler CLI's
+    functions, launches exact, profiled, with the share of (token, choice)
+    slots its capacity dropped; then the CLI's own `sample_latents`, equal."""
+    args = cli.parse_args(["--model", model_name, "--ckpt", "random", "--bf16", "--cfg-scale",
                            "4.0", "--num-sampling-steps", str(steps)])
     cli.check_args(args)
     torch.cuda.reset_peak_memory_stats()
@@ -2543,7 +3123,7 @@ def phase_moe(steps, profile_root):
     hooks = [b.mlp.register_forward_hook(lambda m, i, out: dropped.append(out[1][2]))
              for b in model.blocks]
     try:
-        row, launches["moe_sample"], latents = _sampler_chain(args, model, diffusion, steps)
+        row, launches, latents = _sampler_chain(args, model, diffusion, steps)
         dropped_frac = torch.stack(dropped).mean().item()
     finally:
         for h in hooks:
@@ -2552,22 +3132,40 @@ def phase_moe(steps, profile_root):
     again = cli.sample_latents(args, model, diffusion)  # the CLI's own function, seeded
     if not torch.equal(again, latents):
         raise AssertionError("sample_latents differs from the same chain run by its parts")
-    row.update(model=MOE_MODEL, params=sum(p.numel() for p in model.parameters()),
+    row.update(model=MOE_MODEL, depth=model.depth,
+               params=sum(p.numel() for p in model.parameters()),
                model_build_s=build_s, dropped_frac=dropped_frac,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del model, diffusion, latents, again
     torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_moe(steps, profile_root):
+    """The DiT-MoE family: small models card vs CPU (a chain, two train
+    steps); kernel 3 against `_update_math` over the MoE tree at full width,
+    depth MOE_FU_DEPTH, both nu dtypes; DiT-MoE-XL/2-8E2A at full width cut
+    to CUT_DEPTH sampling cell 1's chain (`_moe_sample`); then the trainer
+    CLI's functions with --fused-optimizer (depth MOE_TRAIN_DEPTH) and with
+    the default AdamW route (depth MOE_ADAMW_DEPTH), each 3 steps after 2
+    under sync debug mode "error". Returns {path: launches}."""
+    small_chain = _small_chain_check("DiT-MoE-S/2-8E2A", {})
+    small_train = _moe_small_train_check()
+    fu_rows = {_dtype_name(nu): phase_fused_update(nu_dtype=nu, model=MOE_MODEL,
+                                                   depth=MOE_FU_DEPTH, library=False,
+                                                   phase="moe_fused_update")
+               for nu in (torch.float32, torch.bfloat16)}
+    launches = {}
+    with cut_depth(MOE_MODEL, CUT_DEPTH) as cut:
+        row, launches["moe_sample"] = _moe_sample(cut, steps, profile_root)
     base = ["--synthetic-data", "--global-batch-size", "32", "--global-seed", "0"]
-    fused, launches["moe_train_fused"] = _train_run(
-        ["--fused-optimizer"], warmup=2, steps=MOE_TRAIN_STEPS, no_sync=True,
-        base=["--model", MOE_MODEL] + base)
-    cut = f"{MOE_MODEL}-depth{MOE_ADAMW_DEPTH}"
-    DiT_models[cut] = functools.partial(DiT_models[MOE_MODEL], depth=MOE_ADAMW_DEPTH)
-    try:
+    with cut_depth(MOE_MODEL, MOE_TRAIN_DEPTH) as cut:
+        fused, launches["moe_train_fused"] = _train_run(
+            ["--fused-optimizer"], warmup=2, steps=MOE_TRAIN_STEPS, no_sync=True,
+            base=["--model", cut] + base)
+    with cut_depth(MOE_MODEL, MOE_ADAMW_DEPTH) as cut:
         adamw, launches["moe_train_adamw"] = _train_run(
             [], warmup=2, steps=MOE_TRAIN_STEPS, no_sync=True, base=["--model", cut] + base)
-    finally:
-        del DiT_models[cut]
     emit({"phase": "moe", "small_check_chain": small_chain, "small_check_train": small_train,
           "fused_update": fu_rows, "sample": row, "train_fused_optimizer": fused,
           "train_adamw": adamw})
@@ -2575,21 +3173,24 @@ def phase_moe(steps, profile_root):
 
 
 def phase_sample_ddp(vae_bin):
-    """The FID harness's own `main` at full width: DiT-XL/2 256², the random
-    VAE, 16 images in 2 batches of 8, 10 DDPM steps, CFG 1.5, `--tf32` at
-    its default (on); the npz must equal the PNGs read back, and the
-    attention forward must launch exactly depth x steps x batches times."""
-    args = sample_ddp.build_parser().parse_args(
-        DDP_ARGS + ["--vae-ckpt", vae_bin, "--sample-dir", os.path.join(OUT_DIR, "samples")])
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = sample_ddp.main(args)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    """The FID harness's own `main` at full width: DiT-XL/2 256² cut to
+    CUT_DEPTH, the random VAE, 16 images in 2 batches of 8, 10 DDPM steps,
+    CFG 1.5, `--tf32` at its default (on); the npz must equal the PNGs read
+    back, and the attention forward must launch exactly depth x steps x
+    batches times."""
+    with cut_depth(DDP_ARGS[1], CUT_DEPTH) as cut:
+        args = sample_ddp.build_parser().parse_args(
+            ["--model", cut, *DDP_ARGS[2:], "--vae-ckpt", vae_bin, "--sample-dir",
+             os.path.join(OUT_DIR, "samples")])
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sample_ddp.main(args)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        depth = DiT_models[args.model].keywords["depth"]
     launches = dict(_build.launch_counts)
     batches = args.num_fid_samples // args.per_proc_batch_size
-    depth = DiT_models[args.model].keywords["depth"]
     want = {**{k: 0 for k in launches},
             "attention_fwd": depth * args.num_sampling_steps * batches}
     if launches != want:
@@ -2603,7 +3204,8 @@ def phase_sample_ddp(vae_bin):
             pngs.append(decode_png(f.read()))
     if not np.array_equal(arr, np.stack(pngs)):
         raise AssertionError("sample_ddp npz differs from its PNGs")
-    emit({"phase": "sample_ddp", "model": args.model, "image_size": args.image_size,
+    emit({"phase": "sample_ddp", "model": args.model, "depth": depth,
+          "image_size": args.image_size,
           "dtype": "float32", "tf32": args.tf32, "cfg_scale": args.cfg_scale,
           "steps": args.num_sampling_steps, "per_proc_batch": args.per_proc_batch_size,
           "images": res["images"], "loop_s": res["seconds"], "total_s": total_s,
@@ -2660,50 +3262,61 @@ def main():
                          "+ _train, + _seq and + _seq_grad")
     a = ap.parse_args()
 
-    smi = phase_device()
+    smi = timed("device", phase_device)
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    vae_bin = write_random_vae(os.path.join(OUT_DIR, "vae_random.bin"))
-    phase_build()
-    fwd = phase_kernel()
-    bwd = phase_kernel_bwd()
-    fused = phase_fused_update()
-    fused_nu16 = phase_fused_update(nu_dtype=torch.bfloat16, library_ms=fused["library_ms"])
-    phase_model()
+    vae_bin = timed("vae_file", write_random_vae, os.path.join(OUT_DIR, "vae_random.bin"))
+    timed("build", phase_build)
+    fwd = timed("kernel", phase_kernel)
+    bwd = timed("kernel_bwd", phase_kernel_bwd)
+    fused = timed("fused_update", phase_fused_update)
+    fused_nu16 = timed("fused_update_nu_bf16", phase_fused_update, nu_dtype=torch.bfloat16,
+                       library_ms=fused["library_ms"])
+    timed("model", phase_model)
     vae_table = None
     if a.profile:
         root, ext = os.path.splitext(a.profile)
         vae_table = f"{root}_vae{ext}"
-    vae = phase_vae(vae_bin, vae_table)
-    sample_launches, model, exact_latents = phase_sample(a.steps, a.profile, vae_bin)
+    vae = timed("vae", phase_vae, vae_bin, vae_table)
+    sample_launches, model = timed("sample", phase_sample, a.steps, a.profile, vae_bin)
     models = [model]
     del model  # phase_samplers takes it out of `models`
-    sampler_launches = phase_samplers(a.profile, vae_bin, models)
+    sampler_launches = timed("samplers", phase_samplers, a.profile, vae_bin, models)
     # the new chains' profiler tables: beside --profile's, else under OUT_DIR
     option_root = os.path.splitext(a.profile)[0] if a.profile else os.path.join(OUT_DIR,
                                                                                 "profile")
-    tome_launches = phase_tome(a.steps, exact_latents, option_root)
-    quant_launches = phase_quant(a.steps, exact_latents, option_root)
-    del exact_latents
-    ddp_launches = phase_sample_ddp(vae_bin)
-    phase_extract(vae)
+    with cut_depth("DiT-XL/2", CUT_DEPTH) as cut:
+        exact = timed("option_reference", _exact_chain, a.steps, cut)
+        tome_launches = timed("tome", phase_tome, a.steps, exact, option_root, cut)
+        quant_launches = timed("quant", phase_quant, a.steps, exact, option_root, cut)
+    del exact
+    ddp_launches = timed("sample_ddp", phase_sample_ddp, vae_bin)
+    timed("extract", phase_extract, vae)
     del vae
     torch.cuda.empty_cache()
-    train_launches = phase_train(a.profile)
-    moe_launches = phase_moe(a.steps, option_root)
-    phase_resume()
-    parallel_launches = phase_train_parallel()
-    ring_fwd = phase_ring_kernel()
-    ring_bwd = phase_ring_kernel_bwd()
+    train_launches = timed("train", phase_train, a.profile)
+    moe_launches = timed("moe", phase_moe, a.steps, option_root)
+    timed("resume", phase_resume)
+    parallel_launches = timed("train_parallel", phase_train_parallel)
+    ring_fwd = timed("ring_kernel", phase_ring_kernel)
+    ring_bwd = timed("ring_kernel_bwd", phase_ring_kernel_bwd)
     seq_table = None
     if a.profile:
         root, ext = os.path.splitext(a.profile)
         seq_table = f"{root}_seq{ext}"
-    seq_sample_launches, seq_grad_launches = phase_seq_parallel(SEQ_SAMPLE_STEPS, seq_table)
+    seq_sample_launches, seq_grad_launches = timed("seq_parallel", phase_seq_parallel,
+                                                   SEQ_SAMPLE_STEPS, seq_table)
+    pipe_model, pipe_launches, pipe_grad_launches, pipe_rank_launches, rank_rows = timed(
+        "pipeline", phase_pipeline)
+    pf_launches = timed("pipefusion", phase_pipefusion, pipe_model, rank_rows)
+    del pipe_model
+    torch.cuda.empty_cache()
     paths = {"sample": sample_launches,
              **{f"samplers_{c}": n for c, n in sampler_launches.items()},
              **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
              **moe_launches, **parallel_launches, "seq_sample": seq_sample_launches,
-             "seq_grad": seq_grad_launches}
+             "seq_grad": seq_grad_launches, "pipeline": pipe_launches,
+             "pipeline_grad": pipe_grad_launches, "pipeline_ranks": pipe_rank_launches,
+             "pipefusion": pf_launches}
     by_path = {k: {path: n.get(k, 0) for path, n in paths.items()} for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):
@@ -2717,6 +3330,7 @@ def main():
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
+    emit({"timing": TIMING, "total_s": time.perf_counter() - _T0})
     emit({"kernels": [
         entry("attention_fwd", "fast_dit_torch/csrc/flash_attention_fwd.cu",
               "fast_dit_tpu/ops/flash_attention.py:119", fwd),

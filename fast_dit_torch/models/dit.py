@@ -86,6 +86,7 @@ class DiT(nn.Module):
         self.hidden_size = hidden_size
         self.depth = depth
         self.num_heads = num_heads
+        self.mlp_ratio = mlp_ratio
         self.num_classes = num_classes
         self.dtype = dtype
         self.remat = remat

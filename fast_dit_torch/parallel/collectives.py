@@ -8,9 +8,12 @@ and `reduce_scatter` along any axis, and `broadcast`. Each calls
 is. PyTorch's backend table lists only broadcast and all-reduce for gloo
 on CUDA tensors, but torch 2.11's gloo runs all four on CUDA tensors, fp32
 and bf16 (checked on the H100 with two ranks on one card), so nothing is
-staged through a host buffer. A gloo collective on a CUDA tensor waits for
-the device, so each one runs with the CUDA sync debug mode off
-(`sync_exempt`); `exempt_ranges` counts them and their seconds.
+staged through a host buffer. Point-to-point calls are another matter:
+gloo's send and recv fail on CUDA tensors, so the pipeline's hand-offs and
+the sequence-parallel ring copy them through host buffers (`through_host`).
+A gloo call on a CUDA tensor waits for the device, so each one runs with
+the CUDA sync debug mode off (`sync_exempt`); `exempt_ranges` counts them
+and their seconds.
 
 The autograd functions, each an identity where the group has one rank:
 
@@ -43,7 +46,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["sync_exempt", "exempt_ranges", "group_size", "group_rank",
+__all__ = ["sync_exempt", "exempt_ranges", "through_host", "group_size", "group_rank",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast", "copy_to_group",
            "reduce_from_group", "mean_over_group", "gather_shard", "broadcast_owned", "full"]
 
@@ -74,6 +77,14 @@ def sync_exempt(tensor: torch.Tensor, group):
         exempt_ranges["count"] += 1
         exempt_ranges["seconds"] += time.perf_counter() - t0
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def through_host(tensor: torch.Tensor, group) -> bool:
+    """Whether a point-to-point call must copy `tensor` through a host
+    buffer: gloo's send and recv read the tensor's memory from the host, and
+    fail on a CUDA tensor ("writev: Bad address", torch 2.11 on the H100,
+    fp32 and bf16, send/recv, isend/irecv and batch_isend_irecv alike)."""
+    return tensor.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:

@@ -16,8 +16,9 @@ shard:
   The counterpart of the JAX tests' virtual-device mesh.
 - `ProcessGroupRing(group)`: rank r of a `torch.distributed` group holds
   shard r. Rotating sends to rank r + 1 and receives from rank r - 1
-  (`batch_isend_irecv`); the backward sends the other way, the transpose of
-  `ppermute`.
+  (`batch_isend_irecv`; a CUDA tensor on gloo through host buffers,
+  `collectives.through_host`); the backward sends the other way, the
+  transpose of `ppermute`.
 
 Both forwards are differentiable end to end. Under a process ring the
 parameter gradients on each rank are that rank's partials (the tokens of
@@ -28,6 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from .collectives import sync_exempt, through_host
 
 __all__ = ["LocalRing", "ProcessGroupRing", "create_seq_groups", "sequence_parallel_stack",
            "dit_sequence_parallel_forward"]
@@ -111,12 +114,15 @@ class ProcessGroupRing:
 
     def _sendrecv(self, t: torch.Tensor, shift: int) -> torch.Tensor:
         t = t.contiguous()
-        out = torch.empty_like(t)
-        ops = [dist.P2POp(dist.isend, t, self._peer(shift), self.group),
-               dist.P2POp(dist.irecv, out, self._peer(-shift), self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return out
+        host = through_host(t, self.group)
+        with sync_exempt(t, self.group):
+            src = t.cpu() if host else t
+            out = torch.empty_like(src)
+            ops = [dist.P2POp(dist.isend, src, self._peer(shift), self.group),
+                   dist.P2POp(dist.irecv, out, self._peer(-shift), self.group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return out.to(t.device) if host else out
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a (B, N, ...) tensor every rank holds whole."""

@@ -19,6 +19,7 @@ from fast_dit_torch.ops import _build
 from fast_dit_torch.ops.attention import attention_qkv, resolve_backend
 from fast_dit_torch.ops.flash_attention import (_attention_qkv_plain, check_qkv,
                                                 flash_attention_qkv_flat)
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 ATOL = 1e-5  # fp32 on both sides; the sums run in other orders
 

@@ -32,6 +32,7 @@ from fast_dit_torch.diffusion import (cache_refresh_mask, create_diffusion,
                                       guidance_interval_cached_fns, guided_steps_korder)
 from fast_dit_torch.models import DiT
 from fast_dit_torch.ops import _build
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TINY = dict(input_size=8, patch_size=2, hidden_size=32, depth=2, num_heads=4, num_classes=10)
 CACHE_RTOL = 1e-5

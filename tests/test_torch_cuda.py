@@ -19,6 +19,7 @@ from fast_dit_torch.ops.ring_attention import (_BWD_ARGS, _FWD_ARGS, _hop_backwa
                                                _hop_forward_plain, _launch_hop_bwd,
                                                _launch_hop_fwd, ring_attention)
 from fast_dit_torch.parallel import LocalRing
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 pytestmark = pytest.mark.cuda
 
@@ -636,3 +637,71 @@ def test_moe_train_steps_card_vs_cpu(cuda):
     assert (cg - pg).abs().max() <= 1e-4 * pg.abs().max()
     assert len(cm) == len(pm) == 8 and all(torch.equal(a, b) for a, b in zip(cm, pm))
     assert launches["attention_fwd"] == 2 * 2 * 2 and launches["attention_bwd"] == 2 * 2
+
+
+def _pipeline_model(device, dtype=torch.float32):
+    from fast_dit_torch import sample as cli
+    from fast_dit_torch.models import DiT_models
+    model = DiT_models["DiT-S/2"](input_size=16, depth=4, dtype=dtype, device=device, seed=0)
+    cli.perturb_(model)
+    return model
+
+
+@pytest.mark.parametrize("n_stages,microbatches", [(2, 2), (4, 4)])
+def test_pipeline_on_the_card_matches_the_cpu(cuda, n_stages, microbatches):
+    """LocalStages on the card (kernels 1 and 2) against the CPU (their
+    plain versions), fp32 DiT-S/2 at depth 4: the output within 1e-4 of its
+    largest, every gradient within 1e-4 of the largest of its leaf; kernel 1
+    launched depth x M times by the forward and kernel 2 depth x M times by
+    the backward, one per block and microbatch (no bubble computes)."""
+    from fast_dit_torch.parallel import LocalStages, dit_pipeline_forward
+    g = torch.Generator().manual_seed(6)
+    x, t = torch.randn(8, 4, 16, 16, generator=g), torch.tensor([1, 50, 500, 999] * 2)
+    y = torch.tensor([1, 7, 1000, 3] * 2)
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        model = _pipeline_model(device)
+        _build.reset_launch_counts()
+        out = dit_pipeline_forward(model, x.to(device), t.to(device), y.to(device),
+                                   LocalStages(n_stages), microbatches)
+        fwd = dict(_build.launch_counts)
+        out.square().sum().backward()
+        res[device.type] = (out.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                                 model.named_parameters()},
+                            fwd, dict(_build.launch_counts))
+    (out, grads, fwd, both), (want, want_grads, _, _) = res["cuda"], res["cpu"]
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    for name, gr in grads.items():
+        assert (gr - want_grads[name]).abs().max() <= 1e-4 * want_grads[name].abs().max(), name
+    assert fwd["attention_fwd"] == 4 * microbatches and fwd["attention_bwd"] == 0
+    assert both["attention_fwd"] == 4 * microbatches
+    assert both["attention_bwd"] == 4 * microbatches
+
+
+def test_pipefusion_chain_on_the_card_matches_the_cpu(cuda):
+    """A chunked PipeFusion chain with CFG (DDIM 4, 4 chunks, warmup 1,
+    LocalStages(2)) on the card, under sync debug mode "error" (no host sync
+    in a step), against the CPU within 1e-4 of max; the chunk attention is
+    stock SDPA, so kernel 1 is never launched."""
+    from fast_dit_torch.diffusion import create_diffusion
+    from fast_dit_torch.parallel import LocalStages, pipefusion_sample_loop
+    z = torch.randn(2, 4, 16, 16, generator=torch.Generator().manual_seed(7))
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        model = _pipeline_model(device).eval()
+        sched = create_diffusion("ddim4", device=device).schedule
+        y, zd = torch.tensor([1, 7], device=device), z.to(device)
+        _build.reset_launch_counts()
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipefusion_sample_loop(model, z.shape, sched, y, LocalStages(2), 4, warmup=1,
+                                         noise=zd, cfg_scale=4.0)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        outs.append(out.cpu())
+        assert _build.launch_counts["attention_fwd"] == 0
+    assert torch.isfinite(outs[0]).all()
+    assert (outs[0] - outs[1]).abs().max() <= 1e-4 * outs[1].abs().max()

@@ -39,8 +39,8 @@ import pytest
 import torch
 
 from test_torch_world import (ATOL, RTOL, assert_metrics_close, assert_replicas_equal,  # noqa: F401
-                              assert_trees_close, batches, one_torch_thread, shared_world,
-                              spawn_world, train_route)
+                              assert_trees_close, batches, drop_tmp_path, one_torch_thread,
+                              shared_world, spawn_world, train_route)
 
 from fast_dit_tpu.diffusion import create_diffusion as jax_create_diffusion
 from fast_dit_tpu.models import DiT as JaxDiT

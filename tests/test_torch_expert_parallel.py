@@ -21,7 +21,7 @@ import torch
 
 from test_torch_data_parallel import _jax_params, jax_draws, jax_sharded_run, jax_state_dict
 from test_torch_world import (ATOL, LOSS_ATOL, LOSS_RTOL, RTOL, assert_metrics_close,  # noqa: F401
-                              assert_replicas_equal, assert_trees_close, batches,
+                              assert_replicas_equal, assert_trees_close, batches, drop_tmp_path,
                               one_torch_thread, shared_world, small_model, spawn_world,
                               train_route)
 

@@ -24,6 +24,7 @@ from fast_dit_torch.ckpt import load_vae
 from fast_dit_torch.data import FeatureDataset, ImageFolderIndex, center_crop_arr, load_image
 from fast_dit_torch.train import cli as train_cli
 from fast_dit_torch.utils.image import decode_png, encode_png
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = (32, 32, 32, 32)  # 4 stages: the kl-f8 factor of 8 at CPU cost

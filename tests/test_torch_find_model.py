@@ -24,7 +24,7 @@ from fast_dit_torch.ckpt import find_model, pretrained_models, resolve_model_pat
 from fast_dit_torch.models import DiT_models
 from fast_dit_torch.train import cli as train_cli
 
-from test_torch_world import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_world import drop_tmp_path, one_torch_thread  # noqa: F401 (autouse fixtures)
 
 
 def _params(model):

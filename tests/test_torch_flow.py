@@ -36,6 +36,7 @@ from fast_dit_torch.diffusion import (FLOW_PATHS, create_diffusion, flow_path_co
 from fast_dit_torch.diffusion.flow import flow_time_grid
 from fast_dit_torch.models import DiT
 from fast_dit_torch.train import cli, create_train_state, make_train_step
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 SHAPE = (2, 3, 4, 4)
 COEF_RTOL = 1e-6

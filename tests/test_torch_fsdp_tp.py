@@ -29,7 +29,7 @@ import torch
 
 from test_torch_data_parallel import _jax_params, jax_draws, jax_sharded_run, jax_state_dict
 from test_torch_world import (ATOL, LOSS_ATOL, LOSS_RTOL, RTOL, assert_metrics_close,  # noqa: F401
-                              assert_replicas_equal, assert_trees_close, batches,
+                              assert_replicas_equal, assert_trees_close, batches, drop_tmp_path,
                               one_torch_thread, shared_world, spawn_world, train_route)
 
 CFG = dict(input_size=8, patch_size=2, hidden_size=128, depth=2, num_heads=4, num_classes=10,

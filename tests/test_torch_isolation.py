@@ -51,7 +51,8 @@ def test_port_sources_exist():
                  "fast_dit_torch/ops/tome.py", "fast_dit_torch/models/moe.py",
                  "fast_dit_torch/data/native_loader.py", "fast_dit_torch/utils/platform.py",
                  "fast_dit_torch/parallel/collectives.py", "fast_dit_torch/parallel/mesh.py",
-                 "fast_dit_torch/ckpt/download.py"):
+                 "fast_dit_torch/ckpt/download.py", "fast_dit_torch/parallel/pipeline.py",
+                 "fast_dit_torch/parallel/pipefusion.py", "fast_dit_torch/data/synthetic.py"):
         assert must in rel
 
 

@@ -23,6 +23,7 @@ from fast_dit_tpu.models.pos_embed import get_2d_sincos_pos_embed as jax_pos_emb
 from fast_dit_torch.ckpt import flax_params_to_state_dict, load_torch_checkpoint
 from fast_dit_torch.models import DiT, DiT_models, TimestepEmbedder
 from fast_dit_torch.models.pos_embed import get_2d_sincos_pos_embed
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 ATOL = 1e-4  # fp32 model outputs, both sides; sums run in other orders

@@ -41,6 +41,7 @@ from fast_dit_torch.ops.fused_update import FactoredNu, fused_adamw_ema_init
 from fast_dit_torch.train import cli as train_cli
 from fast_dit_torch.train import create_train_state, make_train_step
 from test_torch_train import _batch, _jax_draws, _rtol
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # outputs, relative to max |out|
 AUX_RTOL = 1e-6

@@ -14,6 +14,7 @@ from fast_dit_torch.data import FeatureDataset, NativeFeatureLoader, feature_bat
 from fast_dit_torch.data import native_loader as nl
 from fast_dit_torch.ops._build import BUILD_DIR
 from fast_dit_torch.train import cli
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,7 +24,7 @@ import sys
 import pytest
 import torch
 
-from test_torch_world import REPO, assert_trees_close, one_torch_thread  # noqa: F401
+from test_torch_world import REPO, assert_trees_close, drop_tmp_path, one_torch_thread  # noqa: F401
 
 from fast_dit_torch.train import cli
 

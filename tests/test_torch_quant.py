@@ -27,6 +27,7 @@ from fast_dit_torch.ckpt import flax_params_to_state_dict
 from fast_dit_torch.models import DiT
 from fast_dit_torch.models.layers import Linear, QuantLinear
 from fast_dit_torch.ops import quant as tq
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 # fp32, relative to max |out|: what runs no int8 product (the cached call)
 DIT_RTOL = 1e-5

@@ -29,6 +29,7 @@ from fast_dit_torch.models import DiT
 from fast_dit_torch.ops.fused_update import FactoredNu, FusedAdamWEmaState
 from fast_dit_torch.train import cli, create_train_state, make_train_step
 from fast_dit_torch.utils.logging import find_latest_experiment_dir, make_experiment_dir
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 # hidden 192: the factored route has factored and dense leaves (the JAX
 # threshold is 65536 elements)

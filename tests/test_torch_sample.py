@@ -27,6 +27,7 @@ from fast_dit_torch.ckpt import flax_params_to_state_dict
 from fast_dit_torch.diffusion import create_diffusion
 from fast_dit_torch.models import DiT
 from fast_dit_torch.utils.image import make_grid, save_image
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S2 = dict(input_size=8, patch_size=2, hidden_size=384, depth=2, num_heads=6)

@@ -22,6 +22,7 @@ from fast_dit_torch import sample_ddp as cli
 from fast_dit_torch.sample import build_model, build_vae
 from fast_dit_torch.diffusion import create_diffusion
 from fast_dit_torch.utils.image import decode_png
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VAE = (32, 64)

@@ -41,6 +41,7 @@ from fast_dit_torch.diffusion import (create_diffusion, gaussian, guidance_inter
                                       guidance_interval_mask, guided_steps_korder,
                                       karras_timesteps, sampling)
 from fast_dit_torch.models import DiT
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TABLE_ULPS = 4 * 2.0 ** -24  # DPM-Solver's fp32 c_x and c_d, relative

@@ -30,6 +30,7 @@ from fast_dit_torch.ckpt import flax_params_to_state_dict
 from fast_dit_torch.models import DiT
 from fast_dit_torch.ops.ring_attention import ring_attention
 from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward, sequence_parallel_stack
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(input_size=8, patch_size=2, hidden_size=32, depth=4, num_heads=4, num_classes=10)

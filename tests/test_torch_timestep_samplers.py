@@ -34,6 +34,7 @@ from fast_dit_torch.diffusion import (LossSecondMomentState, UniformSamplerState
                                       create_diffusion, create_named_schedule_sampler,
                                       sample_timesteps, update_with_losses)
 from fast_dit_torch.train import cli, create_train_state, make_train_step
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 T, H = 1000, 10
 

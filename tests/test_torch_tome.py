@@ -23,6 +23,7 @@ from fast_dit_torch import sample as cli
 from fast_dit_torch.ckpt import flax_params_to_state_dict
 from fast_dit_torch.models import DiT
 from fast_dit_torch.ops import tome as tt
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 VALUE_ATOL = 1e-6   # merged means (fp32 sums of a few rows in other orders)
 DIT_RTOL = 1e-5     # fp32 DiT outputs, relative to max |out|

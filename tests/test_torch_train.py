@@ -51,6 +51,7 @@ from fast_dit_torch.ops import _build
 from fast_dit_torch.ops.fused_update import FactoredNu
 from fast_dit_torch.train import create_train_state, make_train_step
 from fast_dit_torch.train import cli
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 CFG = dict(input_size=8, patch_size=2, hidden_size=128, depth=2, num_heads=2, num_classes=10)
 LR, DECAY, STEPS, B = 1e-4, 0.9999, 2, 4

@@ -29,6 +29,7 @@ from fast_dit_torch.ckpt import (flax_vae_to_state_dict, import_vae_checkpoint, 
                                  load_vae_state_dict, normalize_vae_state_dict)
 from fast_dit_torch.models import (VAE_SCALE, AutoencoderKL, DiagonalGaussian,
                                    decode_from_latents, encode_to_latents)
+from test_torch_world import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 SMALL = (32, 64)  # 2 stages: one downsample and one upsample
 FULL = (128, 256, 512, 512)

@@ -8,8 +8,19 @@ blocks JAX's packages from import, joins a gloo group of n ranks through a
 collide), runs `fn` (a function of this module) with `kwargs` and saves its
 result; the parent returns the results in rank order. Every spawn has its
 own timeout (300 s): a hang fails the test and the children are killed.
+The world's directory (its job, store, logs and results) is removed once
+the results are read, pass or fail, and the autouse `drop_tmp_path`, which
+every port test file that writes under `tmp_path` imports, removes a
+test's `tmp_path` when it ends: the CLI tests leave checkpoints, exported
+weights and feature folders of hundreds of MB that nothing reads later,
+and pytest keeps the directories of the last three runs.
 This module imports no JAX, so the ranks import only torch, numpy and the
 port.
+
+`pipeline_run` and `pipefusion_run` drive a small DiT through the
+pipeline and PipeFusion on the stages they are given, or on this rank of a
+spawned world as a `ProcessGroupStages` rank that holds only its own
+blocks, so the tests compare the two.
 
 `train_route(route, mesh)` trains one route, a dict of the model's config,
 its weights, the mesh, the optimizer route, the step's options, the global
@@ -25,6 +36,7 @@ leaf by leaf and ranks with each other bit for bit.
 import fcntl
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +53,10 @@ from fast_dit_torch.models import DiT
 from fast_dit_torch.parallel import collectives as col
 from fast_dit_torch.parallel.mesh import (batch_rows, create_expert_mesh, create_mesh,
                                           shard_params)
+from fast_dit_torch.parallel.pipefusion import (init_kv_cache, pipefusion_forward,
+                                                pipefusion_sample_loop)
+from fast_dit_torch.parallel.pipeline import (ProcessGroupStages, create_pipeline_groups,
+                                              dit_pipeline_forward, keep_own_blocks)
 from fast_dit_torch.sample import perturb_
 from fast_dit_torch.train import create_train_state, make_train_step
 from fast_dit_torch.train.train_lib import make_sharded_train_step
@@ -83,6 +99,15 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def drop_tmp_path(request):
+    """Remove the test's `tmp_path`, if it has one, when it ends."""
+    path = request.getfixturevalue("tmp_path") if "tmp_path" in request.fixturenames else None
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def spawn_world(n, fn, tmp_path, timeout=TIMEOUT, **kwargs):
     """Run `fn(**kwargs)` on every rank of a gloo world of n processes;
     returns the ranks' results in order."""
@@ -110,13 +135,16 @@ def spawn_world(n, fn, tmp_path, timeout=TIMEOUT, **kwargs):
                 p.wait()
         for f in logs:
             f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        text = "\n".join(f"--- rank {r} (rc {procs[r].returncode}):\n"
-                         + (d / f"log{r}.txt").read_text()[-4000:] for r in bad)
-        raise AssertionError(f"world of {n} running {fn} failed or timed out after "
-                             f"{timeout} s:\n{text}")
-    return [torch.load(d / f"out{r}.pt", weights_only=False) for r in range(n)]
+    try:
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            text = "\n".join(f"--- rank {r} (rc {procs[r].returncode}):\n"
+                             + (d / f"log{r}.txt").read_text()[-4000:] for r in bad)
+            raise AssertionError(f"world of {n} running {fn} failed or timed out after "
+                                 f"{timeout} s:\n{text}")
+        return [torch.load(d / f"out{r}.pt", weights_only=False) for r in range(n)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def shared_world(tmp_path_factory, key, n, fn, **kwargs):
@@ -403,3 +431,55 @@ def test_no_world_is_one_process(monkeypatch):
 def batches(rs, n, steps, classes=10, size=8):
     return [{"x": rs.randn(n, 4, size, size).astype(np.float32),
              "y": rs.randint(0, classes, size=n).astype(np.int64)} for _ in range(steps)]
+
+
+# -- the rank-side pipeline and PipeFusion programs --------------------------
+
+def world_stages():
+    """This rank's stage of a pipeline over the whole spawned world."""
+    pipe_group, _ = create_pipeline_groups(dist.get_world_size())
+    return ProcessGroupStages(pipe_group)
+
+
+def stage_model(cfg, weights, stages):
+    """`small_model(cfg, weights)` holding only the blocks of its stage."""
+    model = small_model(cfg, weights)
+    keep_own_blocks(model, stages)
+    return model
+
+
+def pipeline_run(cfg, weights, inputs, microbatches, stages=None, grad=True):
+    """`dit_pipeline_forward` of `inputs` (numpy x, t, y) on `stages` (None:
+    this rank of the spawned world); with `grad`, also d sum(out^2) / d
+    every parameter this rank holds that got a gradient."""
+    stages = world_stages() if stages is None else stages
+    model = stage_model(cfg, weights, stages)
+    x, t, y = (torch.from_numpy(a) for a in inputs)
+    with torch.set_grad_enabled(grad):
+        out = dit_pipeline_forward(model, x, t, y, stages, microbatches)
+    res = {"out": out.detach()}
+    if grad:
+        (out ** 2).sum().backward()
+        res["grads"] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    return res
+
+
+def pipefusion_run(cfg, weights, inputs, chunks, stages=None, chain=None):
+    """On `stages` (None: this rank of the spawned world): without `chain`,
+    an exact `pipefusion_forward` of (x, t, y) and a chunked one of (x2, t2,
+    y) after it, with the cache this rank holds; with `chain` (kwargs of
+    `pipefusion_sample_loop` and the respacing), the chain's samples."""
+    stages = world_stages() if stages is None else stages
+    model = stage_model(cfg, weights, stages)
+    arrays = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    if chain is not None:
+        chain = dict(chain)
+        sched = create_diffusion(chain.pop("respacing"), device="cpu").schedule
+        return {"out": pipefusion_sample_loop(model, arrays["noise"].shape, sched, arrays["y"],
+                                              stages, chunks, noise=arrays["noise"],
+                                              step_noise=arrays.get("step_noise"), **chain)}
+    kv = init_kv_cache(model, arrays["x"].shape[0], stages=stages)
+    out1, kv = pipefusion_forward(model, arrays["x"], arrays["t"], arrays["y"], kv, stages, 1)
+    out2, kv = pipefusion_forward(model, arrays["x2"], arrays["t2"], arrays["y"], kv, stages,
+                                  chunks)
+    return {"exact": out1, "chunked": out2, "kv": kv}

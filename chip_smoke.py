@@ -175,6 +175,25 @@ nonzero:
                   cache, as JAX's code does); s/step, images/s, the K/V cache's bytes,
                   peak memory; the pipeline ranks' chunked chains of their small model
                   (1 exact step, 3 chunked) against LocalStages(2)'s.
+18. nvs:          the NVS model, DiTNVS-XL/2 (DiT-XL/2 with a gated cross-attention
+                  against 16 x 16 DINO tokens of 768 dims at layers 13 and 15, random
+                  seeded weights, `random_dino_features` as the context): a small fp32
+                  DiTNVS card vs CPU (forward_with_cfg, DDPM and RePaint chains, 1e-4 x
+                  max); at 256², bf16, CFG 4.0, 8 labels (batch 16): one evaluation
+                  through the kernels against the plain attention (2e-2 x max) launching
+                  kernel 1 exactly 28 + 2 times (the cross-attention packs q, k, v,
+                  256 tokens each); the separate-q/k/v call timed against the packed
+                  kernel; DDPM sampling (nvs_sample) and RePaint inpainting of (16, 4, 32,
+                  32) latents with a seeded hole mask and jump_n 2 (nvs_inpaint, the
+                  known region equal in every element), both under sync debug mode
+                  "error", kernel 1 exactly 30 a model evaluation; training through
+                  make_train_step(model_call=...) with a dino_feat batch key, batch 32,
+                  bf16 over fp32 masters, the fused optimizer with weight decay, 2 steps
+                  after 1 (nvs_train: kernels 1 and 2 exactly 30 a step, kernel 3 once a
+                  tensor of JAX's leaves a step), an unused cross layer's to_q weight
+                  equal in every state to `_update_math` with its zero gradient; then a
+                  256² depth warp and epipolar attention on (2, 64, 32, 32) maps card vs
+                  CPU (masks equal, values within 1e-5).
 Every phase line carries t_s (seconds since the start) and phase_s (seconds since
 its phase of `main` began). Then the `timing` line, {"timing": {phase: wall
 seconds}, "total_s": s}; the `kernels` line, the nvidia-smi line, and the final
@@ -230,6 +249,14 @@ from fast_dit_torch.train import cli as train_cli  # noqa: E402
 from fast_dit_torch.train import create_train_state, make_train_step  # noqa: E402
 from fast_dit_torch.train import get_master_params, update_ema  # noqa: E402
 from fast_dit_torch.diffusion.gaussian import training_losses  # noqa: E402
+from fast_dit_torch.ckpt import jax_leaves  # noqa: E402
+from fast_dit_torch.diffusion.sampling import p_sample_loop  # noqa: E402
+from fast_dit_torch.nvs import DiTNVS, epipolar_attention, inpaint_sample_loop  # noqa: E402
+from fast_dit_torch.nvs.dino import random_dino_features  # noqa: E402
+from fast_dit_torch.models.pos_embed import get_2d_sincos_pos_embed  # noqa: E402
+from fast_dit_torch.nvs import geometry as nvs_geometry  # noqa: E402
+from fast_dit_torch.nvs import warp as nvs_warp  # noqa: E402
+from fast_dit_torch.ops.attention import dot_product_attention  # noqa: E402
 from fast_dit_torch.diffusion import (LossSecondMomentState, cache_refresh_mask,  # noqa: E402
                                       create_diffusion, flow_sample_loop,
                                       guidance_interval_cached_fns, guidance_interval_fn,
@@ -394,6 +421,17 @@ RESUME_ROUTES = [("adamw", {}), ("mixed_precision", {"mixed_precision": True}),
 
 
 _T0 = time.perf_counter()
+# DiTNVS-XL/2 (the NVS model at DiT-XL/2 width and depth): DINOv2 ViT-B/14 at
+# 224² gives a 16 x 16 grid of 768-d tokens, as many as the image's at 256²/p2
+NVS_CFG = dict(input_size=32, patch_size=2, in_channels=4, hidden_size=1152, depth=28,
+               num_heads=16, num_classes=1000, dino_dim=768, dino_patch_grid=16,
+               cross_layers=(13, 15))
+NVS_BATCH = 16           # CFG batch of 8 labels
+NVS_SAMPLE_STEPS = 10    # DDPM steps of the sampling chain
+NVS_INPAINT_STEPS = 5    # RePaint steps, each of NVS_JUMP_N passes
+NVS_JUMP_N = 2
+NVS_TRAIN_BATCH, NVS_TRAIN_WARMUP, NVS_TRAIN_STEPS = 32, 1, 2
+NVS_WD = 1e-2            # weight decay, so the unused cross layers' leaves move
 TIMING = {}  # phase of main -> its wall seconds, for the timing line
 _PHASE_T0 = [_T0]  # when the phase of main now running began
 
@@ -668,15 +706,16 @@ def phase_kernel_bwd():
 
 
 def phase_fused_update(steps=3, nu_dtype=torch.float32, library_ms=None, model="DiT-XL/2",
-                       depth=None, library=True, phase="fused_update"):
+                       depth=None, library=True, phase="fused_update", make_model=None):
     """The fused kernel vs `_update_math` over the parameter tree of
-    `model` (DiT-XL/2's, or at `depth`) (bf16 params and mu, fp32 or bf16
-    nu, fp32 master and EMA); returns the row. The fp32-nu run also times
-    the library yardstick, which the bf16 run reuses (`library_ms`); with
-    `library` False none is timed."""
+    `model` (DiT-XL/2's, or at `depth`; `make_model` builds a model not in the
+    registry) (bf16 params and mu, fp32 or bf16 nu, fp32 master and EMA);
+    returns the row. The fp32-nu run also times the library yardstick, which
+    the bf16 run reuses (`library_ms`); with `library` False none is timed."""
     kw = {} if depth is None else {"depth": depth}
     with torch.device("meta"):
-        shapes = [p.shape for p in DiT_models[model](device="meta", **kw).parameters()]
+        build = make_model or DiT_models[model]
+        shapes = [p.shape for p in build(device="meta", **kw).parameters()]
     g = torch.Generator(device="cuda").manual_seed(3)
     init = [(0.02 * torch.randn(s, generator=g, device="cuda")).to(torch.bfloat16)
             for s in shapes]
@@ -2700,6 +2739,349 @@ def phase_pipefusion(model, rank_rows):
             for k in launches["ddim_forward_with_cfg"]}
 
 
+# -- the NVS model (DiTNVS: DiT-XL/2 with DINO cross-attention) ---------------
+
+def _nvs_model(cfg, device, dtype=torch.float32, seed=0):
+    """A DiTNVS of `cfg` on `device`: the seeded init plus `sample.perturb_`
+    (a fresh model's zeroed adaLN and head would output 0)."""
+    model = DiTNVS(**cfg, dtype=dtype, device=device, seed=seed)
+    cli.perturb_(model)
+    return model.eval()
+
+
+def _set_attention_backend(model, backend):
+    for blk in model.blocks:
+        blk.attn.attn_backend = blk.cross_attn.attn_backend = backend
+
+
+def _nvs_inputs(cfg, batch, device, seed):
+    """Seeded latents, labels ([cond ; null] halves), `random_dino_features`
+    and a hole mask (1 = fill, about 40 % of the latent's pixels)."""
+    g = torch.Generator().manual_seed(seed)
+    n = cfg["input_size"]
+    x = torch.randn(batch, cfg.get("in_channels", 4), n, n, generator=g)
+    y = torch.randint(0, cfg["num_classes"], (batch // 2,), generator=g)
+    y = torch.cat([y, torch.full_like(y, cfg["num_classes"])])
+    feat = torch.from_numpy(random_dino_features(batch, cfg["dino_patch_grid"],
+                                                 cfg["dino_dim"], seed=seed))
+    mask = (torch.rand(batch, 1, n, n, generator=g) < 0.4).float()
+    return [a.to(device) for a in (x, y, feat, mask)]
+
+
+def _inpaint_draws(shape, steps, jump_n, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randn((steps, jump_n, *shape), generator=g).to(device)
+            for k in ("known_noise", "step_noise", "renoise")}
+
+
+def _nvs_small_check():
+    """A small fp32 DiTNVS (cross-attention of 64 image tokens over 64 DINO
+    tokens, kernel 1 on the card): forward_with_cfg, a DDPM chain and a
+    RePaint chain with the same draws on the card and the CPU, within 1e-4
+    of max."""
+    cfg = dict(input_size=16, hidden_size=128, depth=3, num_heads=2, num_classes=10,
+               dino_dim=48, dino_patch_grid=8, cross_layers=(0, 2))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = _nvs_model(cfg, device)
+        x, y, feat, mask = _nvs_inputs(cfg, 4, device, seed=21)
+        sched = create_diffusion("4", device=device).schedule
+        fn = lambda xx, tt: model.forward_with_cfg(xx, tt, feat, y, 4.0)  # noqa: E731
+        g = torch.Generator().manual_seed(22)
+        step_noise = torch.randn((4, *x.shape), generator=g).to(device)
+        with torch.inference_mode():
+            outs[device] = [
+                fn(x, torch.full((4,), 500, device=device)),
+                p_sample_loop(fn, x.shape, sched, noise=x, step_noise=step_noise),
+                inpaint_sample_loop(fn, x.clamp(-1, 1), mask, sched, noise=x, jump_n=2,
+                                    **_inpaint_draws(x.shape, 4, 2, device, 23))]
+    errs = {}
+    for name, a, b in zip(("forward_with_cfg", "ddpm_4", "inpaint_4_jump_2"), outs["cuda"],
+                          outs["cpu"]):
+        err, peak = (a.cpu() - b).abs().max().item(), b.abs().max().item()
+        errs[name] = {"max_abs_err": err, "tol": 1e-4 * peak}
+        if not (torch.isfinite(a).all() and err <= 1e-4 * peak):
+            raise AssertionError(f"small DiTNVS {name} card vs CPU: {err} > 1e-4 x {peak}")
+    return errs
+
+
+def _nvs_leaf_state(state, i):
+    """(param, mu, nu, master, EMA) of parameter i, copied."""
+    return [list(state.model.parameters())[i].detach().clone(), state.opt.mu[i].clone(),
+            state.opt.nu[i].clone(), state.opt.master[i].clone(),
+            list(state.ema.values())[i].clone()]
+
+
+def _nvs_train(model, batch_size, warmup, steps):
+    """`make_train_step(model_call=...)` with the `dino_feat` batch key and
+    `--fused-optimizer`'s kernel 3 (bf16 parameters over fp32 masters, fp32
+    nu, weight decay NVS_WD), `warmup` steps and then `steps` timed ones
+    under sync debug mode "error", the launch counts set to 0 just before
+    them; an unused cross
+    layer's to_q weight, whose gradient is zero, is held against
+    `_update_math` over the last step in every state. Returns (row, launches)."""
+    cfg = dict(input_size=model.input_size, num_classes=model.num_classes,
+               dino_dim=model.dino_dim, dino_patch_grid=model.dino_patch_grid)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    state = create_train_state(model, fused_optimizer=True)
+    diffusion = create_diffusion("", device="cuda")
+    step = make_train_step(model, diffusion.schedule, lr=LR, weight_decay=NVS_WD,
+                           generator=g, model_call=lambda x_t, t, b, force, gen: model(
+                               x_t, t, b["dino_feat"], b["y"], train=True,
+                               force_drop_ids=force, generator=gen))
+    x, y, feat, _ = _nvs_inputs(cfg, batch_size, "cuda", seed=32)
+    batch = {"x": x, "y": y, "dino_feat": feat}
+    unused = min(set(range(model.depth)) - set(model.cross_layers))
+    names = [n for n, _ in model.named_parameters()]
+    leaf = names.index(f"blocks.{unused}.cross_attn.to_q.weight")
+    for _ in range(warmup):
+        step(state, batch)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses, before = [], None
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(steps):
+            if i == steps - 1:
+                before = _nvs_leaf_state(state, leaf)
+            losses.append(step(state, batch)["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dict(_build.launch_counts)
+    members = sum(len(lf.members) for lf in jax_leaves(model))
+    per_step = {"attention_fwd": model.depth + len(model.cross_layers),
+                "attention_bwd": model.depth + len(model.cross_layers),
+                "fused_adamw_ema": members}
+    want = {**{k: 0 for k in launches}, **{k: v * steps for k, v in per_step.items()}}
+    if launches != want:
+        raise AssertionError(f"DiTNVS training launches {launches}, expected {want}")
+    grad = list(model.parameters())[leaf].grad
+    bc1, bc2 = fu.bias_corrections(state.opt.count, 0.9, 0.999)
+    p0, m0, v0, w0, e0 = before
+    want_leaf = fu._update_math(grad, m0, v0, w0, e0, bc1.to(grad.device), bc2.to(grad.device), lr=LR,
+                                b1=0.9, b2=0.999, eps=1e-8, wd=NVS_WD, ema_decay=0.9999,
+                                mu_dtype=m0.dtype, p_dtype=p0.dtype)
+    got_leaf = _nvs_leaf_state(state, leaf)
+    losses = [l_.item() for l_ in losses]
+    if not (grad is not None and not grad.any()
+            and all(torch.equal(a, b) for a, b in zip(got_leaf, want_leaf))
+            and not torch.equal(got_leaf[3], w0) and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"DiTNVS training: the unused cross layer {unused}'s to_q leaf "
+                             f"is not _update_math's with a zero gradient and weight decay, or "
+                             f"a loss is not finite: {losses}")
+    row = {"batch": batch_size, "warmup_steps": warmup, "steps": steps, "s_per_step": step_s,
+           "losses": losses, "launches": launches, "launches_per_step": per_step,
+           "jax_leaves": len(jax_leaves(model)), "jax_leaf_members": members,
+           "unused_cross_leaf": f"blocks.{unused}.cross_attn.to_q.weight",
+           "unused_cross_leaf_equal_update_math": True, "weight_decay": NVS_WD,
+           "sync_debug_mode": "error"}
+    return row, launches
+
+
+def _xl_nvs_model(cfg, seed):
+    """DiTNVS at `cfg`, bf16 compute over fp32 parameters, built on the meta
+    device and filled on the card from a seeded CUDA generator: N(0, 0.02)
+    for the adaLN, the head, the embedders' tables and MLP and every bias
+    (the init's zeros and N(0, 0.02), plus `sample.perturb_`'s 0.02),
+    xavier-normal for the other matrices; the sin-cos `pos_embed` as built.
+    The host init of 0.94 G parameters on the CPU took 19 s."""
+    with torch.device("meta"):
+        model = DiTNVS(**cfg, dtype=torch.bfloat16, device="meta")
+    model = model.to_empty(device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    small = ("adaLN", "final_layer.linear", "embedding", "t_embedder")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            std = 0.02
+            if p.dim() >= 2 and not any(k in name for k in small):
+                fan_out, fan_in = p.shape[0], p[0].numel()
+                std = (2.0 / (fan_in + fan_out)) ** 0.5
+            p.normal_(0.0, std, generator=g)
+        model.pos_embed.copy_(torch.from_numpy(get_2d_sincos_pos_embed(
+            cfg["hidden_size"], cfg["input_size"] // cfg["patch_size"])[None]))
+    return model.eval()
+
+
+def _set_compute_dtype(model, dtype):
+    for m in model.modules():
+        if "dtype" in m.__dict__:
+            m.dtype = dtype
+
+
+def _nvs_evaluation_check(model, x, feat, y, per_eval):
+    """One model evaluation (batch 16 at t = 500) through the kernels
+    against the plain attention on the same weights, bf16: within 2e-2 x
+    max, kernel 1 launched exactly `per_eval` times. The guided output
+    (CFG 4.0) is held against the fp32 plain model instead: CFG scales the
+    cond - uncond difference by 4, so two bf16 paths part there by 3-6 %
+    of max (DiT-XL/2 measured 6.1 % on the card), and the kernels' bf16
+    output must be as near the fp32 one as the plain bf16 output is (its
+    relative L2 distance within 1.1 x)."""
+    t = torch.full((x.shape[0],), 500, device="cuda")
+    fwd, cfg_out = {}, {}
+    for dtype, backend in ((torch.bfloat16, "einsum"), (torch.float32, "einsum"),
+                           (torch.bfloat16, "auto")):
+        _set_compute_dtype(model, dtype)
+        _set_attention_backend(model, backend)
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            key = (str(dtype).replace("torch.", ""), backend)
+            fwd[key] = model(x, t, feat, y)
+            launches = dict(_build.launch_counts)
+            cfg_out[key] = model.forward_with_cfg(x, t, feat, y, 4.0)
+        torch.cuda.synchronize()
+    kern, plain, truth = (("bfloat16", "auto"), ("bfloat16", "einsum"), ("float32", "einsum"))
+    err = (fwd[kern] - fwd[plain]).abs().max().item()
+    peak = fwd[plain].abs().max().item()
+    l2 = {k: ((cfg_out[k] - cfg_out[truth]).norm() / cfg_out[truth].norm()).item()
+          for k in (kern, plain)}
+    cfg_rel = ((cfg_out[kern] - cfg_out[plain]).abs().max()
+               / cfg_out[plain].abs().max()).item()
+    if not (torch.isfinite(fwd[kern]).all() and err <= 2e-2 * peak
+            and launches.get("attention_fwd") == per_eval and l2[kern] <= 1.1 * l2[plain]):
+        raise AssertionError(f"DiTNVS-XL/2 bf16 evaluation: kernel vs plain {err} > 2e-2 x "
+                             f"{peak}, launches {launches} != {per_eval}, or the guided output's "
+                             f"distance from fp32 {l2[kern]} > 1.1 x the plain bf16's {l2[plain]}")
+    return {"launches": launches, "max_abs_err": err, "max_abs_out": peak, "tol": 2e-2 * peak,
+            "cfg_max_rel_kernel_vs_plain": cfg_rel,
+            "cfg_l2_rel_from_fp32": {"kernel_bf16": l2[kern], "plain_bf16": l2[plain],
+                                     "tol": 1.1 * l2[plain]}}
+
+
+def phase_nvs():
+    """The NVS model at DiTNVS-XL/2 width; see the module docstring (18).
+    Returns the launches of the paths nvs_sample, nvs_inpaint, nvs_train."""
+    small = _nvs_small_check()
+    cfg = NVS_CFG
+    model = _xl_nvs_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    per_eval = model.depth + len(model.cross_layers)
+    x, y, feat, mask = _nvs_inputs(cfg, NVS_BATCH, "cuda", seed=24)
+    fn = lambda xx, tt: model.forward_with_cfg(xx, tt, feat, y, 4.0)  # noqa: E731
+    evaluation = _nvs_evaluation_check(model, x, feat, y, per_eval)
+    # the cross-attention call (q, k, v packed, kernel 1) at its shape
+    g = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v = (torch.randn(NVS_BATCH, 256, 1152, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    qkv = torch.cat([q, k, v], dim=-1)
+    cross_ms = cuda_ms(lambda: dot_product_attention(q, k, v, 16))
+    packed_ms = cuda_ms(lambda: flash_attention_qkv_flat(qkv, 16))
+    del q, k, v, qkv
+
+    def chain(name, run, evals):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        want = {**{kk: 0 for kk in launches}, "attention_fwd": per_eval * evals}
+        if launches != want or not torch.isfinite(out).all():
+            raise AssertionError(f"DiTNVS {name}: launches {launches}, expected {want}, or "
+                                 f"not finite")
+        return out, launches, {"loop_s": loop_s, "model_evals": evals,
+                               "s_per_eval": loop_s / evals, "launches": launches,
+                               "sync_debug_mode": "error"}
+
+    diffusion = create_diffusion(str(NVS_SAMPLE_STEPS), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    latents, sample_launches, sample_row = chain(
+        "sampling", lambda: diffusion.p_sample_loop(fn, x.shape, noise=x, generator=gen),
+        NVS_SAMPLE_STEPS)
+    sample_row.update(steps=NVS_SAMPLE_STEPS, s_per_step=sample_row["loop_s"] / NVS_SAMPLE_STEPS,
+                      images_per_s=(NVS_BATCH // 2) / sample_row["loop_s"])
+    known = latents.clamp(-1, 1)
+    sched = create_diffusion(str(NVS_INPAINT_STEPS), device="cuda").schedule
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    filled, inpaint_launches, inpaint_row = chain(
+        "inpainting", lambda: inpaint_sample_loop(fn, known, mask, sched, generator=gen,
+                                                  jump_n=NVS_JUMP_N),
+        NVS_INPAINT_STEPS * NVS_JUMP_N)
+    keep = mask.expand_as(known) == 0
+    if not (tuple(filled.shape) == tuple(known.shape)
+            and torch.equal(filled[keep], known[keep])):
+        raise AssertionError("DiTNVS inpainting: the known region is not kept exactly")
+    inpaint_row.update(steps=NVS_INPAINT_STEPS, jump_n=NVS_JUMP_N,
+                       hole_fraction=mask.mean().item(), known_region_equal=True,
+                       s_per_step=inpaint_row["loop_s"] / NVS_INPAINT_STEPS)
+    del latents, filled, known, x, feat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_row, train_launches = _nvs_train(model, NVS_TRAIN_BATCH, NVS_TRAIN_WARMUP,
+                                           NVS_TRAIN_STEPS)
+    train_row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    torch.cuda.empty_cache()
+    # kernel 3 over the DiTNVS tree alone (its launches are this check's)
+    fused = phase_fused_update(steps=2, model="DiTNVS-XL/2", library=False,
+                               phase="nvs_fused_update",
+                               make_model=functools.partial(DiTNVS, **NVS_CFG))
+    geo = _nvs_geometry_check()
+    emit({"phase": "nvs", "model": "DiTNVS-XL/2", "image_size": 256, "dtype": "bfloat16",
+          "parameters": n_params, **{k: v for k, v in cfg.items() if k.startswith(("dino",
+                                                                                  "cross"))},
+          "small_check": small, "cfg_scale": 4.0, "batch": NVS_BATCH,
+          "evaluation": evaluation,
+          "cross_attention": {"shape": [NVS_BATCH, 256, 256, 16, 72], "dtype": "bfloat16",
+                              "separate_qkv_ms": cross_ms, "packed_qkv_kernel_ms": packed_ms},
+          "sample": sample_row, "inpaint": inpaint_row, "train": train_row,
+          "fused_update_ms": fused["kernel_ms"], "fused_update_bound_ms": fused["bound_ms"],
+          **geo})
+    return {"nvs_sample": sample_launches, "nvs_inpaint": inpaint_launches,
+            "nvs_train": train_launches}
+
+
+def _nvs_geometry_check():
+    """A 256² depth warp (seeded random depth and pose) and epipolar
+    attention on (2, 64, 32, 32) maps, card against CPU: masks equal, values
+    within 1e-5 (of max for the attention), with the card's ms."""
+    rs = np.random.RandomState(28)
+    h = w = 256
+    depth = torch.from_numpy((1.0 + 2.0 * rs.rand(h, w)).astype(np.float32))
+    img = torch.from_numpy(rs.rand(h, w, 3).astype(np.float32))
+    K = torch.tensor([[240.0, 0, 128], [0, 240.0, 128], [0, 0, 1]])
+    R = nvs_geometry.quaternion_to_rotation_matrix(torch.tensor([1.0, 0.02, -0.04, 0.01]))
+    t = torch.tensor([0.15, -0.05, 0.02])
+    f_tar, f_src = (torch.from_numpy(rs.randn(2, 64, 32, 32).astype(np.float32))
+                    for _ in range(2))
+    F = torch.stack([nvs_geometry.fundamental_matrix(K, K, R, t),
+                     nvs_geometry.fundamental_matrix(K, K, R.T, -t)])
+    res = {}
+    for device in ("cuda", "cpu"):
+        args = [a.to(device) for a in (img, depth, K, K, R, t)]
+        warped, cover = nvs_warp.warp_image_by_depth(*args)
+        attn = epipolar_attention(*(a.to(device) for a in (f_tar, f_src, F)), threshold=0.5,
+                                  use_affinity=True)
+        res[device] = (warped.cpu(), cover.cpu(), attn.cpu())
+        if device == "cuda":
+            warp_ms = cuda_ms(lambda: nvs_warp.warp_image_by_depth(*args), iters=5, warmup=1)
+            epi_ms = cuda_ms(lambda: epipolar_attention(
+                *(a.to(device) for a in (f_tar, f_src, F)), threshold=0.5, use_affinity=True),
+                iters=5, warmup=1)
+    (wc, cc, ac), (wp, cp, ap) = res["cuda"], res["cpu"]
+    warp_err = (wc - wp).abs().max().item()
+    attn_err, attn_peak = (ac - ap).abs().max().item(), ap.abs().max().item()
+    if not (torch.equal(cc, cp) and warp_err <= 1e-5 and attn_err <= 1e-5 * attn_peak
+            and cp.float().mean().item() > 0.5):
+        raise AssertionError(f"warp/epipolar card vs CPU: masks equal {torch.equal(cc, cp)}, "
+                             f"warp {warp_err} > 1e-5 or attention {attn_err} > 1e-5 x "
+                             f"{attn_peak}")
+    return {"warp": {"size": [h, w], "coverage": cp.float().mean().item(),
+                     "masks_equal": True, "max_abs_err": warp_err, "tol": 1e-5,
+                     "card_ms": warp_ms},
+            "epipolar": {"shape": [2, 64, 32, 32], "use_affinity": True,
+                         "max_abs_err": attn_err, "tol": 1e-5 * attn_peak, "card_ms": epi_ms}}
+
+
 def random_vae_state_dict(channels=VAE_CHANNELS, latent=4, seed=0):
     """Random weights in the diffusers AutoencoderKL layout (the names and
     shapes of sd-vae-ft-*), numpy fp32, from `seed`: the stand-in for the
@@ -3310,13 +3692,14 @@ def main():
     pf_launches = timed("pipefusion", phase_pipefusion, pipe_model, rank_rows)
     del pipe_model
     torch.cuda.empty_cache()
+    nvs_launches = timed("nvs", phase_nvs)
     paths = {"sample": sample_launches,
              **{f"samplers_{c}": n for c, n in sampler_launches.items()},
              **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
              **moe_launches, **parallel_launches, "seq_sample": seq_sample_launches,
              "seq_grad": seq_grad_launches, "pipeline": pipe_launches,
              "pipeline_grad": pipe_grad_launches, "pipeline_ranks": pipe_rank_launches,
-             "pipefusion": pf_launches}
+             "pipefusion": pf_launches, **nvs_launches}
     by_path = {k: {path: n.get(k, 0) for path, n in paths.items()} for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):

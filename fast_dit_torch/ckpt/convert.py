@@ -10,7 +10,12 @@
   port names its routed MLP itself: `blocks.{i}.mlp.router.weight` (E, D),
   the flax (D, E) router kernel transposed, and `blocks.{i}.mlp.wi` (E, D,
   H), `.bi` (E, H), `.wo` (E, H, D), `.bo` (E, D), JAX's per-block arrays
-  as they are.
+  as they are. Nor has a `DiTNVS` tree (`nvs/conditioning.py`), whose
+  names are the port's too: `blocks.{i}.cross_attn.{to_q,to_k,to_v}` Linear
+  weights (D, D) from the flax (D, H, hd) kernels and (D,) biases from
+  (H, hd), `blocks.{i}.cross_attn.proj` as the self-attention's proj, and
+  `dino_embedder.proj.weight` (D, dino_dim, 1, 1) from the (dino_dim, D)
+  kernel, as `x_embedder`'s with patch 1; the 9D adaLN maps as the DiT's.
 - `jax_leaves` lists the flax leaves of a port DiT: which of its parameters
   each stacks and how one of them looks in flax's layout, so that a state
   kept per flax leaf (the factored second moment of `ops/fused_update.py`)
@@ -55,6 +60,14 @@ def _proj_w(arr):  # (H, hd, D_out) -> (D_out, H*hd)
     return arr.reshape(h * hd, d_out).T
 
 
+def _heads_w(arr):  # (D, H, hd) -> (H*hd, D)
+    return arr.reshape(arr.shape[0], -1).T
+
+
+def _heads_b(arr):  # (H, hd) -> (H*hd,)
+    return arr.reshape(-1)
+
+
 # torch name suffix inside a block -> (flax path inside the block, export)
 _BLOCK_MAP = {
     "adaLN_modulation.1.weight": ("adaLN_modulation/kernel", _t),
@@ -79,11 +92,23 @@ _MOE_BLOCK_MAP = {
 }
 
 
-def _block_map(moe: bool):
-    if not moe:
-        return _BLOCK_MAP
-    dense = {k: v for k, v in _BLOCK_MAP.items() if not k.startswith("mlp.")}
-    return {**dense, **_MOE_BLOCK_MAP}
+# the cross-attention of a DiTNVS block, beside the DiT block's entries
+_CROSS_BLOCK_MAP = {
+    **{f"cross_attn.{n}.weight": (f"cross_attn/{n}/kernel", _heads_w)
+       for n in ("to_q", "to_k", "to_v")},
+    **{f"cross_attn.{n}.bias": (f"cross_attn/{n}/bias", _heads_b)
+       for n in ("to_q", "to_k", "to_v")},
+    "cross_attn.proj.weight": ("cross_attn/proj/kernel", _proj_w),
+    "cross_attn.proj.bias": ("cross_attn/proj/bias", _id),
+}
+
+
+def _block_map(moe: bool, cross: bool = False):
+    block = _BLOCK_MAP
+    if moe:
+        dense = {k: v for k, v in _BLOCK_MAP.items() if not k.startswith("mlp.")}
+        block = {**dense, **_MOE_BLOCK_MAP}
+    return {**block, **_CROSS_BLOCK_MAP} if cross else block
 
 
 # top-level torch name -> (flax path, export)
@@ -100,6 +125,12 @@ _TOP_MAP = {
     "final_layer.linear.bias": ("final_layer/linear/bias", _id),
 }
 
+# a DiTNVS's DINO embedder; its weight maps as x_embedder's, with patch 1
+_NVS_TOP_MAP = {"dino_embedder.proj.bias": ("dino_embedder/proj/bias", _id)}
+# patch embedding weight -> the flax kernel it comes from
+_PATCH_WEIGHTS = {"x_embedder.proj.weight": "x_embedder/proj/kernel",
+                  "dino_embedder.proj.weight": "dino_embedder/proj/kernel"}
+
 
 def _get(tree, path: str):
     for k in path.split("/"):
@@ -109,18 +140,24 @@ def _get(tree, path: str):
 
 def flax_params_to_state_dict(params: dict, patch_size: int, in_channels: int = 4,
                               input_size: int = 32) -> Dict[str, torch.Tensor]:
-    """JAX DiT param tree (numpy leaves, with or without the "params" level)
-    -> the port's fp32 state dict, `pos_embed` included."""
+    """JAX DiT or DiTNVS param tree (numpy leaves, with or without the
+    "params" level) -> the port's fp32 state dict, `pos_embed` included."""
     p = params["params"] if "params" in params else params
+    nvs = "dino_embedder" in p
     arrays: Dict[str, np.ndarray] = {}
     kern = _get(p, "x_embedder/proj/kernel")  # (C*p*p, D)
     d = kern.shape[1]
     arrays["x_embedder.proj.weight"] = kern.T.reshape(d, in_channels, patch_size, patch_size)
-    for name, (path, export) in _TOP_MAP.items():
+    top = dict(_TOP_MAP)
+    if nvs:
+        kern = _get(p, "dino_embedder/proj/kernel")  # (dino_dim, D)
+        arrays["dino_embedder.proj.weight"] = kern.T.reshape(d, kern.shape[0], 1, 1)
+        top.update(_NVS_TOP_MAP)
+    for name, (path, export) in top.items():
         arrays[name] = export(_get(p, path))
     block = p["blocks"]["block"]
     depth = _get(block, "attn/qkv/kernel").shape[0]
-    for suffix, (path, export) in _block_map("router" in block["mlp"]).items():
+    for suffix, (path, export) in _block_map("router" in block["mlp"], nvs).items():
         stacked = _get(block, path)
         for i in range(depth):
             arrays[f"blocks.{i}.{suffix}"] = export(stacked[i])
@@ -157,34 +194,41 @@ def _layouts(heads: int):
     qkv_b = (lambda a: a.reshape(3, heads, -1), lambda a: a.reshape(-1))
     proj_w = (lambda a: a.T.reshape(heads, -1, a.shape[0]),
               lambda a: a.reshape(-1, a.shape[-1]).T)
-    patch = (lambda a: a.reshape(a.shape[0], -1).T, None)  # from_jax needs the shape
+    heads_w = (lambda a: a.T.reshape(a.shape[1], heads, -1),
+               lambda a: a.reshape(a.shape[0], -1).T)
+    heads_b = (lambda a: a.reshape(heads, -1), lambda a: a.reshape(-1))
     table = {}
-    for suffix, (_, export) in {**_BLOCK_MAP, **_MOE_BLOCK_MAP, **_TOP_MAP}.items():
+    for suffix, (_, export) in {**_BLOCK_MAP, **_MOE_BLOCK_MAP, **_CROSS_BLOCK_MAP,
+                                **_TOP_MAP, **_NVS_TOP_MAP}.items():
         table[suffix] = {_t: t, _id: same, _qkv_w: qkv_w, _qkv_b: qkv_b,
-                         _proj_w: proj_w}[export]
-    table["x_embedder.proj.weight"] = patch
+                         _proj_w: proj_w, _heads_w: heads_w, _heads_b: heads_b}[export]
     return table
 
 
 def jax_leaves(model) -> List[JaxLeaf]:
-    """The flax leaves of `model` (a port DiT) in flax's order of paths,
-    each with the port's parameters it holds. A MoE block's expert leaves
-    keep JAX's stacked shapes, (depth, E, D, H) for `wi`."""
+    """The flax leaves of `model` (a port DiT or DiTNVS) in flax's order of
+    paths, each with the port's parameters it holds. A MoE block's expert
+    leaves keep JAX's stacked shapes, (depth, E, D, H) for `wi`; a DiTNVS
+    block's cross-attention leaves too, (depth, D, H, hd) for `to_q`."""
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
     index = {n: i for i, n in enumerate(names)}
     layouts = _layouts(model.num_heads)
+    nvs = "dino_embedder.proj.weight" in index
     leaves = []
-    for name, (path, _) in _TOP_MAP.items():
+    for name, (path, _) in {**_TOP_MAP, **(_NVS_TOP_MAP if nvs else {})}.items():
         i = index[name]
         to_jax, from_jax = layouts[name]
         leaves.append(JaxLeaf(path, (i,), tuple(to_jax(params[i]).shape), to_jax, from_jax))
-    i = index["x_embedder.proj.weight"]
-    shape4 = tuple(params[i].shape)
-    leaves.append(JaxLeaf("x_embedder/proj/kernel", (i,), (math.prod(shape4[1:]), shape4[0]),
-                          layouts["x_embedder.proj.weight"][0],
-                          lambda a, s=shape4: a.T.reshape(s)))
-    for suffix, (path, _) in _block_map(getattr(model, "moe_experts", 0) > 0).items():
+    for name, path in _PATCH_WEIGHTS.items():
+        if name not in index:
+            continue
+        i = index[name]
+        shape4 = tuple(params[i].shape)
+        leaves.append(JaxLeaf(path, (i,), (math.prod(shape4[1:]), shape4[0]),
+                              lambda a: a.reshape(a.shape[0], -1).T,
+                              lambda a, s=shape4: a.T.reshape(s)))
+    for suffix, (path, _) in _block_map(getattr(model, "moe_experts", 0) > 0, nvs).items():
         members = tuple(index[f"blocks.{b}.{suffix}"] for b in range(len(model.blocks)))
         to_jax, from_jax = layouts[suffix]
         one = tuple(to_jax(params[members[0]]).shape)

@@ -210,7 +210,7 @@ class ParamShard:
 def _layout(name: str, suffix: str, heads: int, full_shape):
     """(to_jax, from_jax) of a port tensor, shape-agnostic but for `heads`."""
     from ..ckpt.convert import _layouts  # noqa: PLC0415 (the ckpt package imports models)
-    if name == "x_embedder.proj.weight":
+    if name in ("x_embedder.proj.weight", "dino_embedder.proj.weight"):
         # (D, C, p, p) <-> (C p p, D); a part split on the C p p axis stays
         # the 2-D (D, C p p / n) and becomes 4-D again when gathered
         rest = tuple(full_shape[1:])

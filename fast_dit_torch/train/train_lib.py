@@ -28,6 +28,22 @@ device, so nothing waits for the card). Random draws come from one
 noise, then the label drops, per microbatch; `draws=` injects them instead
 (for the tests).
 
+`model_call(x_t, t_model, batch_mb, force_drop_ids, generator)` overrides
+how the model is applied (JAX's `model_call`, `train_lib.py:128,147-153,
+181`): it gets the microbatch's dict of every batch key, the label drops
+the step drew (None where the model draws them itself from `generator`),
+and returns the model output. For `nvs.DiTNVS`:
+
+    lambda x_t, t, b, force, g: model(x_t, t, b["dino_feat"], b["y"], train=True,
+                                      force_drop_ids=force, generator=g)
+
+Every batch key is split into microbatches with "x" (and under a mesh each
+key is the rank's rows of the global batch, as JAX shards every batch key
+on its leading dimension, `:349-351`). A parameter that gets no gradient
+(a DiTNVS layer outside `cross_layers` never runs its cross-attention)
+gets zeros, as JAX's gradient of a branch multiplied by 0 is, so every
+optimizer route steps it, weight decay included.
+
 A MoE model (`models/moe.py`) returns its per-layer aux values from the
 same forward (`want_aux=True`); per microbatch, their means over the layers
 join the loss as `moe_aux_weight * load_balance + moe_z_weight * router_z`
@@ -56,7 +72,7 @@ means over the data group, the gradient norm the global one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -162,11 +178,13 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
                     grad_accum: int = 1, log_grad_norm: bool = False, lr: float = 1e-4,
                     weight_decay: float = 0.0, objective: str = "eps",
                     flow_path: str = "linear", generator: Optional[torch.Generator] = None,
-                    moe_aux_weight: float = 1e-2, moe_z_weight: float = 1e-3, mesh=None):
+                    moe_aux_weight: float = 1e-2, moe_z_weight: float = 1e-3, mesh=None,
+                    model_call: Optional[Callable] = None):
     """Build `train_step(state, batch, draws=None) -> metrics`.
 
-    batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels} on the
-    model's device. `draws`, if given, is a list of `grad_accum` dicts
+    batch: {"x": (B, C, H, W) fp32 latents, "y": (B,) int64 labels, ...any
+    extra conditioning with B rows} on the model's device. `model_call`:
+    see the module docstring. `draws`, if given, is a list of `grad_accum` dicts
     {"t" (int timesteps, or fp32 times in [0, 1) for flow), "noise", and
     optionally "weights" and "force_drop_ids"} used instead of the
     generator. `lr` and `weight_decay` serve the fused route; the AdamW
@@ -182,6 +200,11 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
     if getattr(model, "tome_ratio", 0) > 0:
         raise ValueError("token merging is inference-only")
     is_moe = getattr(model, "moe_experts", 0) > 0
+    if is_moe and model_call is not None:
+        raise ValueError(
+            "custom model_call with a MoE model would silently drop the routing aux losses "
+            "(the default model call alone collects them) - the router could collapse. "
+            "Extend the default model call instead.")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -190,7 +213,8 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
     dgroup = mesh.data_group if mesh is not None else None
     drop_prob = model.y_embedder.dropout_prob
 
-    def micro_step(x, y, draw, sampler_state):
+    def micro_step(batch_mb, draw, sampler_state):
+        x, y = batch_mb["x"], batch_mb["y"]
         B = x.shape[0]          # this rank's rows
         n = B * data            # the global microbatch's
         weights = None
@@ -222,6 +246,8 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         auxes = []  # the aux values of the loss's one model call, with their graph
 
         def model_fn(x_t, t_model):
+            if model_call is not None:
+                return model_call(x_t, t_model, batch_mb, force, generator)
             if not is_moe:
                 return model(x_t, t_model, y, train=True, force_drop_ids=force,
                              generator=generator)
@@ -256,8 +282,10 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         params = state.params()
         for p in params:
             p.grad = None
-        x, y = batch["x"], batch["y"]
-        B = x.shape[0]
+        B = batch["x"].shape[0]
+        short = [k for k, v in batch.items() if v.shape[0] != B]
+        if short:
+            raise ValueError(f"batch keys {short} do not have the {B} rows of 'x'")
         if B % grad_accum:
             raise ValueError(f"batch {B} is not divisible by grad_accum {grad_accum}")
         mb = B // grad_accum
@@ -269,16 +297,19 @@ def make_train_step(model: nn.Module, schedule, *, ema_decay: float = 0.9999,
         start, step = 0, mb
         if grad_accum > 1 and data > 1:
             # contiguous global microbatches, as JAX reshapes the global batch
-            x, y = all_gather(x, dgroup), all_gather(y, dgroup)
+            batch = {k: all_gather(v, dgroup) for k, v in batch.items()}
             start, step = drank * mb, mb * data
         per_micro = []
         for i in range(grad_accum):
             # each microbatch sees the sampler state the previous one updated
             rows = slice(start + i * step, start + i * step + mb)
-            m, state.sampler_state = micro_step(x[rows], y[rows],
+            m, state.sampler_state = micro_step({k: v[rows] for k, v in batch.items()},
                                                 None if draws is None else draws[i],
                                                 state.sampler_state)
             per_micro.append(m)
+        for p in params:
+            if p.grad is None:  # a branch this model did not run
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if grad_accum > 1:
             torch._foreach_div_(grads, float(grad_accum))

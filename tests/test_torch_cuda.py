@@ -243,6 +243,65 @@ def test_a_cached_dit_call_launches_no_kernel(cuda):
     assert _build.launch_counts["attention_fwd"] == 2 and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_separate_qkv_attention_runs_the_kernels(cuda, dtype):
+    """`dot_product_attention` over separate q, k, v of equal lengths (the
+    NVS model's cross-attention at the fork's shape): q, k, v packed into
+    one (B, S, 3D) tensor, kernel 1 forward and kernel 2 backward, against
+    the plain version on the same inputs."""
+    from fast_dit_torch.ops.attention import _attention_plain, dot_product_attention
+    g = torch.Generator(device=cuda).manual_seed(4)
+    leaves = [torch.randn(4, 256, 16 * 72, generator=g, device=cuda).to(dtype).requires_grad_()
+              for _ in range(3)]
+    dout = torch.randn(4, 256, 16 * 72, generator=g, device=cuda).to(dtype)
+    before = dict(_build.launch_counts)
+    out = dot_product_attention(*leaves, 16)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["attention_fwd"] == before["attention_fwd"] + 1
+    assert _build.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
+    plain = [t.detach().float().requires_grad_() for t in leaves]
+    want = _attention_plain(*plain, 16, 72 ** -0.5)
+    want_grads = torch.autograd.grad(want, plain, dout.float())
+    assert (out.float() - want).abs().max() <= TOL[dtype]
+    for got, ref in zip(grads, want_grads):
+        assert (got.float() - ref).abs().max() <= BWD_RTOL[dtype] * ref.abs().max()
+
+
+def test_separate_qkv_attention_refuses_unequal_lengths_on_the_card(cuda):
+    from fast_dit_torch.ops.attention import dot_product_attention
+    q, kv = torch.randn(2, 256, 64, device=cuda), torch.randn(2, 16, 64, device=cuda)
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="Sq=256 and Sk=16.*'einsum'"):
+        dot_product_attention(q, kv, kv, 4)
+    out = dot_product_attention(q, kv, kv, 4, backend="einsum")  # the plain version, asked for
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert dict(_build.launch_counts) == before
+
+
+def test_ditnvs_on_the_card_matches_the_cpu(cuda):
+    """A small fp32 DiTNVS, card against CPU (1e-4 x max): kernel 1 once a
+    block and once a cross layer per forward."""
+    from fast_dit_torch import sample as cli
+    from fast_dit_torch.nvs import DiTNVS
+    g = torch.Generator().manual_seed(6)
+    x, f = torch.randn(4, 4, 16, 16, generator=g), torch.randn(4, 48, 8, 8, generator=g)
+    t, y = torch.tensor([3, 300, 600, 999]), torch.tensor([1, 2, 10, 10])
+    outs = {}
+    for device in (cuda, torch.device("cpu")):
+        model = DiTNVS(input_size=16, hidden_size=128, depth=3, num_heads=2, num_classes=10,
+                       dino_dim=48, dino_patch_grid=8, cross_layers=(0, 2), device=device)
+        cli.perturb_(model)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            outs[device.type] = model.forward_with_cfg(x.to(device), t.to(device), f.to(device),
+                                                       y.to(device), 4.0).cpu()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launch_counts["attention_fwd"] == 3 + 2
+    assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-4 * outs["cpu"].abs().max()
+
+
 # the ring hop: (B, Sq, Sk, H, hd); fp32 and bf16 relative to max |output|:
 # fp32, sums in other orders; bf16, the kernels round p_u, do and du to bf16
 # before their products where the plain version keeps them fp32

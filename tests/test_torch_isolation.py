@@ -52,7 +52,12 @@ def test_port_sources_exist():
                  "fast_dit_torch/data/native_loader.py", "fast_dit_torch/utils/platform.py",
                  "fast_dit_torch/parallel/collectives.py", "fast_dit_torch/parallel/mesh.py",
                  "fast_dit_torch/ckpt/download.py", "fast_dit_torch/parallel/pipeline.py",
-                 "fast_dit_torch/parallel/pipefusion.py", "fast_dit_torch/data/synthetic.py"):
+                 "fast_dit_torch/parallel/pipefusion.py", "fast_dit_torch/data/synthetic.py",
+                 *(f"fast_dit_torch/nvs/{m}.py" for m in (
+                     "__init__", "conditioning", "dino", "epipolar", "geometry", "inpaint",
+                     "metrics", "pose_io", "warp")),
+                 "fast_dit_torch/utils/viz.py", "fast_dit_torch/utils/video.py",
+                 "fast_dit_torch/nvs_demo.py", "fast_dit_torch/evaluate_samples.py"):
         assert must in rel
 
 

@@ -50,6 +50,7 @@ import torch.distributed as dist
 from fast_dit_torch.ckpt.checkpoint import checkpoint_tree
 from fast_dit_torch.diffusion import LossSecondMomentState, create_diffusion
 from fast_dit_torch.models import DiT
+from fast_dit_torch.nvs import DiTNVS
 from fast_dit_torch.parallel import collectives as col
 from fast_dit_torch.parallel.mesh import (batch_rows, create_expert_mesh, create_mesh,
                                           shard_params)
@@ -167,9 +168,10 @@ def shared_world(tmp_path_factory, key, n, fn, **kwargs):
 # -- the rank-side training program ----------------------------------------
 
 def small_model(cfg, weights=None):
-    """A small DiT from `cfg` (DiT kwargs), with `weights` (a state dict) or
-    the seed-0 init perturbed by `sample.perturb_`."""
-    model = DiT(**cfg, device="cpu", seed=0)
+    """A small DiT from `cfg` (DiT kwargs; a DiTNVS where they name a
+    `dino_dim`), with `weights` (a state dict) or the seed-0 init perturbed
+    by `sample.perturb_`."""
+    model = (DiTNVS if "dino_dim" in cfg else DiT)(**cfg, device="cpu", seed=0)
     if weights is None:
         perturb_(model)
     else:
@@ -205,6 +207,8 @@ def train_route(route, mesh="world"):
     state = create_train_state(model, lr=None if fused else 1e-4, generator=g,
                                sampler_state=_sampler(route), **state_kw)
     step_kw = dict(lr=1e-4, log_grad_norm=True, generator=g, **route.get("step", {}))
+    if isinstance(model, DiTNVS):
+        step_kw["model_call"] = nvs_model_call(model)
     schedule = create_diffusion("", device="cpu").schedule
     step = (make_train_step(model, schedule, **step_kw) if mesh is None else
             make_sharded_train_step(model, schedule, mesh, **step_kw))
@@ -219,7 +223,7 @@ def train_route(route, mesh="world"):
     metrics = []
     for i, b in enumerate(route["batches"]):
         rows = slice(None) if mesh is None else batch_rows(mesh, len(b["y"]))
-        batch = {"x": torch.from_numpy(b["x"][rows]), "y": torch.from_numpy(b["y"][rows])}
+        batch = {k: torch.from_numpy(v[rows]) for k, v in b.items()}
         draws = None if route.get("draws") is None else [
             {k: torch.from_numpy(v) for k, v in d.items()} for d in route["draws"][i]]
         m = step(state, batch, draws=draws)
@@ -239,6 +243,14 @@ def train_route(route, mesh="world"):
         out["sampler"] = (None if state.sampler_state is None else
                           state.sampler_state.loss_history.clone())
     return out
+
+
+def nvs_model_call(model):
+    """The train step's `model_call` for a DiTNVS: the batch's DINO features."""
+    def call(x_t, t, batch, force_drop_ids, generator):
+        return model(x_t, t, batch["dino_feat"], batch["y"], train=True,
+                     force_drop_ids=force_drop_ids, generator=generator)
+    return call
 
 
 def _state_bytes(state):

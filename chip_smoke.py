@@ -107,7 +107,7 @@ nonzero:
                   CLI's functions (launches exact, profiled, the capacity's dropped
                   share) and `sample_latents`; then the trainer CLI's functions at
                   batch 32, bf16, remat "nothing", 3 steps after 2 under sync debug mode
-                  "error", cut to 14 blocks: with --fused-optimizer (one fused-update
+                  "error", cut to 7 blocks: with --fused-optimizer (one fused-update
                   launch per parameter leaf per step) and the default AdamW route (24
                   bytes a parameter: 62 GiB at full depth before AdamW's temporaries).
 12b. resume:      DiT-XL/2's width at depth 4, every optimizer route and nu kind with
@@ -121,16 +121,19 @@ nonzero:
                   `_update_math`; small fp32 routes (DiT-S/2, DiT-MoE-S/2-8E2A at 256²,
                   depth 4, batch 8, 2 steps: DP 2 with AdamW, fused fp32, bf16 and factored nu,
                   loss-second-moment t and grad-accum 2, FSDP 2, TP 2, EP 2; TP 2 + FSDP
-                  and EP 2 + FSDP on 4 ranks) against one process on the card, to the
-                  CPU tests' limits, ranks that hold the same part of a parameter
-                  holding the same bytes (the worlds of 2 and 4 at once, beside their
-                  references); the trainer CLI's functions at DiT-XL/2 cut to 7
+                  and EP 2 + FSDP on 4 ranks; the small DiTNVS of the CPU tests, 2 heads
+                  of 16, with the fused optimizer: DP 2 with grad-accum 2 and the
+                  dino_feat key, FSDP 2, TP 2, kernels 1, 2 and 3 launched exactly on
+                  every rank, under the path train_parallel_nvs) against one process
+                  on the card, to the CPU tests' limits, ranks that hold the same part
+                  of a parameter holding the same bytes (the worlds of 2 and 4 at once,
+                  beside their references); the trainer CLI's functions at DiT-XL/2 cut to 4
                   blocks, batch 32, bf16, remat "nothing", --fused-optimizer, 2 steps
                   after 1 under sync debug mode "error" (the gloo collectives exempt),
                   with DP 2, FSDP 2, TP 2, and DiT-MoE-XL/2-8E2A cut to 4 with EP 2: losses
                   within 2e-2 of one process, launches exact per rank, s/step, peak
                   memory, collective ms, DP 2's step profiled; then the CLI's main at world
-                  1 over NCCL (7 blocks). Kernels 1 and 2 at the ranks' shapes, (16,256,16,72) and
+                  1 over NCCL (4 blocks). Kernels 1 and 2 at the ranks' shapes, (16,256,16,72) and
                   (32,256,8,72), are in phases 3 and 4.
 13. ring_kernel:  the ring-attention hop forward against its plain version, fp32 and
                   bf16, at the sequence-parallel 512² shape, at a 4096-token ring's
@@ -194,6 +197,25 @@ nonzero:
                   equal in every state to `_update_math` with its zero gradient; then a
                   256² depth warp and epipolar attention on (2, 64, 32, 32) maps card vs
                   CPU (masks equal, values within 1e-5).
+19. kernel_check: `fast_dit_torch.kernel_check` on the card: kernels 1 and 2 at S =
+                  256, 512, 1024, 2048 and 4096 (B = 2 up to 1024, then 1; 16 heads of 72;
+                  fp32 and bf16; at 256 also the inference call) and kernels 4 and 5 on one
+                  shard at 1024, 2048 and 4096 (fp32 and bf16), forward and input gradients
+                  against softmax attention in float64 on the card: fp32 within 2e-5, bf16
+                  within 5e-2, absolute; one line a case with the kernels' ms.
+20. parity:       `fast_dit_torch.parity_check` replays both bundles recorded from the
+                  reference sampler (tests/fixtures: DDPM and DDIM, 10 steps, depth 2, 4
+                  heads of 8) through kernel 1 in fp32: within 2e-4 of the recorded
+                  latents (JAX's limit), kernel 1 launched exactly depth x steps = 20 each.
+21. validate:     `fast_dit_torch.validate_pretrained` at DiT-XL/2 256², full width and
+                  depth, on a reference-layout `.pt` of the sampling path's weights (the
+                  seeded init plus `sample.perturb_`, written after phase 8) and the random
+                  full-width VAE: A (the port's forward against the functional oracle,
+                  fp32, TF32 off) within 1e-3; B the VAE round trip; C the demo labels,
+                  CFG 4.0, fp32, 50 DDPM steps (cut from 250: steps, not width); D
+                  `sample_ddp` in bf16, 16 images in batches of 8, 50 steps, the npz of 16
+                  256² images, the split-half FID of random weights (a mechanism check);
+                  kernel 1 launched exactly 28 x (1 + 50 + 2 x 50) times.
 Every phase line carries t_s (seconds since the start) and phase_s (seconds since
 its phase of `main` began). Then the `timing` line, {"timing": {phase: wall
 seconds}, "total_s": s}; the `kernels` line, the nvidia-smi line, and the final
@@ -239,6 +261,7 @@ from fast_dit_torch.ops.ring_attention import (  # noqa: E402
 from fast_dit_torch.parallel import LocalRing, dit_sequence_parallel_forward  # noqa: E402
 from fast_dit_torch import sample as cli  # noqa: E402
 from fast_dit_torch import sample_ddp  # noqa: E402
+from fast_dit_torch import kernel_check, parity_check, validate_pretrained  # noqa: E402
 from fast_dit_torch.ckpt import CheckpointManager, load_vae  # noqa: E402
 from fast_dit_torch.data import FeatureDataset, feature_batches  # noqa: E402
 from fast_dit_torch.extract_features import encode_images, feature_dirs, write_features  # noqa: E402
@@ -348,12 +371,12 @@ QUANT_CHAINS = [("quant_w8a8", ["--quantize", "w8a8"]),
 QUANT_GEMMS = {"qkv": (4096, 1152, 3456), "proj": (4096, 1152, 1152),
                "fc1": (4096, 1152, 4608), "fc2": (4096, 4608, 1152)}
 # the MoE family at full width: 8 experts, top-2 (2.76 G parameters at its 28
-# blocks); sampling at CUT_DEPTH; both training routes at depth 14 (the
-# AdamW route's 24 bytes a parameter make 62 GiB at 28; the fused route took
-# about 50 GiB and a minute of the script there); kernel 3's check over the
-# tree at depth 4 (depth repeats the same leaves)
+# blocks); sampling and both training routes at CUT_DEPTH (the AdamW route's
+# 24 bytes a parameter make 62 GiB at 28; the fused route took about 50 GiB
+# and a minute of the script there; at 14 both took 23 s of the script's 600);
+# kernel 3's check over the tree at depth 4 (depth repeats the same leaves)
 MOE_MODEL = "DiT-MoE-XL/2-8E2A"
-MOE_TRAIN_STEPS, MOE_TRAIN_DEPTH, MOE_ADAMW_DEPTH, MOE_FU_DEPTH = 3, 14, 14, 4
+MOE_TRAIN_STEPS, MOE_TRAIN_DEPTH, MOE_ADAMW_DEPTH, MOE_FU_DEPTH = 3, CUT_DEPTH, CUT_DEPTH, 4
 # (name, the trainer CLI's flags): the remat policies (and none, for peak
 # memory) and the fused route's bf16 and factored nu, 3 timed steps after 2,
 # each under sync debug mode "error"
@@ -367,17 +390,20 @@ MORE_TRAIN_STEPS = 3
 # mu and nu make an 11 GB file per route), batch 16, every route and nu kind
 RESUME_DEPTH, RESUME_BATCH = 4, 16
 # train_parallel: ranks are processes on cuda:0 over gloo. The small fp32
-# checks (DiT-S/2 and DiT-MoE-S/2-8E2A at 256² cut to depth 4, batch 8, 2
-# steps, by world size; the worlds of 2 and 4 run at once, beside their
-# one-process references); then DiT-XL/2 at full width cut to PAR_DEPTH,
+# checks (DiT-S/2 and DiT-MoE-S/2-8E2A at 256² cut to depth 4, and the small
+# DiTNVS, batch 8, 2 steps, by world size; the worlds of 2 and 4 run at once,
+# beside their one-process references); then DiT-XL/2 at full width cut to PAR_DEPTH,
 # batch 32, bf16, remat "nothing", the fused optimizer, PAR_STEPS timed steps
 # after PAR_WARMUP, with DP 2, FSDP 2 and TP 2, and the MoE cut to
 # PAR_EP_DEPTH with EP 2; the main path's route (PAR_PROFILED) also profiled.
 # gloo's host transport scales with the parameters' bytes: at full depth the
-# routes took 231 s of the script's 808 on the H100 (PERF.md section 5)
+# routes took 231 s of the script's 808 on the H100, at depth 7 46 s of 528
+# (PERF.md section 5)
 PAR_TIMEOUT = 900
 PAR_SMALL_BATCH, PAR_SMALL_STEPS = 8, 2
 _S2, _MOE_S2 = ("DiT-S/2", {"depth": 4}), ("DiT-MoE-S/2-8E2A", {"depth": 4})
+_NVS_S = ("DiTNVS", dict(input_size=8, patch_size=2, hidden_size=32, depth=3, num_heads=2,
+                         num_classes=10, dino_dim=24, dino_patch_grid=4, cross_layers=(1,)))
 PAR_SMALL = {
     2: [{"name": "dp2_adamw", "model": _S2, "mesh": ("model", 1)},
         {"name": "dp2_fused_nu_fp32", "model": _S2, "mesh": ("model", 1),
@@ -391,13 +417,20 @@ PAR_SMALL = {
          "step": {"grad_accum": 2}},
         {"name": "fsdp2", "model": _S2, "mesh": ("model", 1), "fsdp": True},
         {"name": "tp2", "model": _S2, "mesh": ("model", 2), "tp": True},
-        {"name": "ep2", "model": _MOE_S2, "mesh": ("expert", 2)}],
+        {"name": "ep2", "model": _MOE_S2, "mesh": ("expert", 2)},
+        # the small DiTNVS of the CPU tests (2 heads of 16; cross-attention at
+        # layer 1, 16 query and 16 DINO tokens), with the fused optimizer
+        *({"name": f"nvs_{name}", "model": _NVS_S, "state": {"fused_optimizer": True}, **kw}
+          for name, kw in (("dp2_grad_accum_2", {"mesh": ("model", 1),
+                                                 "step": {"grad_accum": 2}}),
+                           ("fsdp2", {"mesh": ("model", 1), "fsdp": True}),
+                           ("tp2", {"mesh": ("model", 2), "tp": True})))],
     4: [{"name": "tp2_fsdp", "model": _S2, "mesh": ("model", 2), "tp": True, "fsdp": True},
         {"name": "ep2_fsdp", "model": _MOE_S2, "mesh": ("expert", 2), "fsdp": True}],
 }
 PAR_FULL = [("dp2", ["--fused-optimizer"]), ("fsdp2", ["--fused-optimizer", "--fsdp"]),
             ("tp2", ["--fused-optimizer", "--tp", "2"])]
-PAR_DEPTH, PAR_EP_DEPTH = 7, 4
+PAR_DEPTH, PAR_EP_DEPTH = 4, 4
 PAR_WARMUP, PAR_STEPS = 1, 2
 PAR_PROFILED = ("dp2",)
 PAR_LOSS_RTOL = 2e-2   # bf16 activations: one process and the world sum in other orders
@@ -432,6 +465,14 @@ NVS_INPAINT_STEPS = 5    # RePaint steps, each of NVS_JUMP_N passes
 NVS_JUMP_N = 2
 NVS_TRAIN_BATCH, NVS_TRAIN_WARMUP, NVS_TRAIN_STEPS = 32, 1, 2
 NVS_WD = 1e-2            # weight decay, so the unused cross layers' leaves move
+# the validation kit: both committed reference bundles within
+# JAX's parity limit (tests/test_parity_harness.py); validate_pretrained's C
+# and D chains cut from 250 DDPM steps to VALIDATE_STEPS (depth, not width),
+# D over VALIDATE_FID images
+PARITY_BUNDLES = ("ddpm", "ddim")
+PARITY_ATOL = 2e-4
+VALIDATE_STEPS, VALIDATE_FID = 50, 16
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 TIMING = {}  # phase of main -> its wall seconds, for the timing line
 _PHASE_T0 = [_T0]  # when the phase of main now running began
 
@@ -1566,7 +1607,9 @@ def _par_small_route(route, world):
                                               shard_params)
     from fast_dit_torch.train import make_sharded_train_step
     name, kw = route["model"]
-    model = DiT_models[name](input_size=32, remat=True, device="cuda", seed=0, **kw)
+    nvs = name == "DiTNVS"
+    model = (DiTNVS(**kw, device="cuda", seed=0) if nvs else
+             DiT_models[name](input_size=32, remat=True, device="cuda", seed=0, **kw))
     cli.perturb_(model)
     mesh = None
     if world:
@@ -1587,15 +1630,38 @@ def _par_small_route(route, world):
     state = create_train_state(model, lr=None if fused else LR, generator=g,
                                sampler_state=sampler, **state_kw)
     kw = dict(lr=LR, log_grad_norm=True, generator=g, **route.get("step", {}))
+    if nvs:  # the DINO features ride in the batch, split by rows with x and y
+        kw["model_call"] = lambda x_t, t, b, force, gen: model(
+            x_t, t, b["dino_feat"], b["y"], train=True, force_drop_ids=force, generator=gen)
     schedule = create_diffusion("", device="cuda").schedule
     step = (make_sharded_train_step(model, schedule, mesh, **kw) if world else
             make_train_step(model, schedule, **kw))
     rs = np.random.RandomState(1)
-    x = torch.from_numpy(rs.randn(PAR_SMALL_BATCH, 4, 32, 32).astype(np.float32)).cuda()
-    y = torch.from_numpy(rs.randint(0, 1000, PAR_SMALL_BATCH)).cuda()
+    size = model.input_size
+    batch = {"x": rs.randn(PAR_SMALL_BATCH, 4, size, size).astype(np.float32),
+             "y": rs.randint(0, model.num_classes, PAR_SMALL_BATCH)}
+    if nvs:
+        grid = model.dino_patch_grid
+        batch["dino_feat"] = rs.randn(PAR_SMALL_BATCH, model.dino_dim, grid,
+                                      grid).astype(np.float32)
     rows = batch_rows(mesh, PAR_SMALL_BATCH) if world else slice(None)
-    metrics = [step(state, {"x": x[rows], "y": y[rows]}) for _ in range(PAR_SMALL_STEPS)]
-    out = {"metrics": [{k: v.item() for k, v in m.items()} for m in metrics]}
+    batch = {k: torch.from_numpy(v[rows]).cuda() for k, v in batch.items()}
+    _build.reset_launch_counts()
+    metrics = [step(state, batch) for _ in range(PAR_SMALL_STEPS)]
+    torch.cuda.synchronize()
+    out = {"metrics": [{k: v.item() for k, v in m.items()} for m in metrics],
+           "launches": dict(_build.launch_counts)}
+    if nvs and world:
+        # every block's self-attention and the cross-attention, forward and
+        # backward (no remat), each microbatch; kernel 3 once a local tensor
+        calls = (model.depth + len(model.cross_layers)) * kw.get("grad_accum", 1) * PAR_SMALL_STEPS
+        dense = collections.Counter(fu._COUNTS[v.dtype] for v in state.opt.nu
+                                    if not isinstance(v, fu.FactoredNu) and v.numel())
+        want = {**{k: 0 for k in out["launches"]}, "attention_fwd": calls,
+                "attention_bwd": calls, **{k: n * PAR_SMALL_STEPS for k, n in dense.items()}}
+        if out["launches"] != want:
+            raise AssertionError(f"train_parallel {route['name']} rank {mesh.rank}: launches "
+                                 f"{out['launches']}, expected {want}")
     tree = checkpoint_tree(state)
     out["tree"] = None if tree is None else _to_host(tree)
     if world:
@@ -1705,7 +1771,8 @@ def _par_small_checks():
                                      f"{differ[:5]}")
             out[r["name"]] = {"ranks": n, "metric_max_rel_err": loss_err,
                               "param_ema_max_abs_err": worst,
-                              "losses": [m["loss"] for m in res[0]["metrics"]]}
+                              "losses": [m["loss"] for m in res[0]["metrics"]],
+                              "launches": [got["launches"] for got in res]}
     return out
 
 
@@ -1843,6 +1910,11 @@ def phase_train_parallel():
     Returns {path: launches summed over the ranks}."""
     fu_row = _fused_update_sharded()
     small = _par_small_checks()
+    # the DiTNVS routes' launches, summed over their ranks (each checked
+    # exact on its rank)
+    nvs_launches = sum((collections.Counter(n) for name, row in small.items()
+                        if name.startswith("nvs_") for n in row["launches"]),
+                       collections.Counter())
     # the one-process references of the full-width routes (same seed, batch)
     refs = {}
     for key, cut in [("xl2", ("DiT-XL/2", PAR_DEPTH)), ("moe", (MOE_MODEL, PAR_EP_DEPTH))]:
@@ -1874,6 +1946,7 @@ def phase_train_parallel():
         full[name] = {"ranks": rows, "loss_rel_err_vs_one_process": rel,
                       "one_process": {k: ref[k] for k in ("losses", "s_per_step",
                                                           "peak_mem_gib", "params")}}
+    launches["train_parallel_nvs"] = dict(nvs_launches)
     cli_row, launches["train_parallel_cli_nccl"] = _par_cli_nccl()
     emit({"phase": "train_parallel", "kernel3_sharded": fu_row, "small_check": small,
           "full": full, "full_world_s": full_s, "cli_nccl": cli_row,
@@ -3554,6 +3627,134 @@ def phase_moe(steps, profile_root):
     return launches
 
 
+def _with_bounds(row):
+    """A kernel_check row with its kernels' bounds (the formulas of phases
+    kernel, kernel_bwd and ring_kernel*): forward 4 B S^2 D operations, the
+    backward 10; bytes each input read and each output written once."""
+    B, S, H, hd = row["B"], row["S"], row["H"], row["hd"]
+    dtype = getattr(torch, row["dtype"])
+    D, elt = H * hd, torch.tensor([], dtype=dtype).element_size()
+    if row["regime"] == "ring-hop":  # q, k, v in; o_u, l fp32 out; back: do, dl fp32 in
+        fwd_bytes = 3 * B * S * D * elt + 4 * (B * S * D + B * S * H)
+        bwd_bytes = 6 * B * S * D * elt + 4 * (B * S * D + B * S * H)
+    else:  # packed qkv in, out; back: qkv, out, dO in, dqkv out
+        fwd_bytes, bwd_bytes = 4 * B * S * D * elt, 8 * B * S * D * elt
+    for key, nbytes, flops in (("bound", fwd_bytes, 4 * B * S * S * D),
+                               ("bwd_bound", bwd_bytes, 10 * B * S * S * D)):
+        if key == "bwd_bound" and row["bwd_kernel_ms"] is None:
+            continue
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        row[f"{key}_ms"] = max(t_bytes, t_ops)
+        row[f"{key}_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return {"phase": "kernel_check", **row}
+
+
+def phase_kernel_check():
+    """`fast_dit_torch.kernel_check` on the card: kernels 1 and 2 at S = 256
+    to 4096 and kernels 4 and 5 at 1024 to 4096 against float64, fp32 within
+    2e-5, bf16 within 5e-2; one line a case. Returns its launches (the
+    check's calls and its timed calls)."""
+    _build.reset_launch_counts()
+    rows, failures = kernel_check.run(torch.device("cuda"),
+                                      emit=lambda line: emit(_with_bounds(json.loads(line))))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if failures:
+        bad = [(r["S"], r["dtype"], r["fwd_impl"]) for r in rows
+               if not (r["fwd_ok"] and r["grad_ok"])]
+        raise AssertionError(f"kernel_check: {failures} cases past their limits: {bad}")
+    return launches
+
+
+def phase_parity():
+    """`fast_dit_torch.parity_check` on both committed bundles recorded from
+    the reference sampler (DDPM and DDIM, 10 steps, a DiT of depth 2 and 4
+    heads of 8): within PARITY_ATOL of the recorded latents, kernel 1 (fp32)
+    launched exactly depth x steps times in each. Returns {path: launches}."""
+    fixtures = os.path.join(REPO_DIR, "tests", "fixtures")
+    rows, launches = {}, {}
+    for sampler in PARITY_BUNDLES:
+        with open(os.path.join(fixtures, f"ref_bundle_{sampler}_T10.json")) as f:
+            meta = json.load(f)
+        args = parity_check.build_parser().parse_args([
+            "--bundle", os.path.join(fixtures, f"ref_bundle_{sampler}_T10.npz"),
+            "--ckpt", os.path.join(fixtures, "ref_bundle_model.pt"),
+            "--model-config", json.dumps(meta["model_config"]), "--sampler", sampler,
+            "--atol", str(PARITY_ATOL), "--diffusion-steps", str(meta["T"]),
+            "--noise-schedule", meta["schedule"], "--clip-denoised", "--device", "cuda"])
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = parity_check.replay(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = dict(_build.launch_counts)
+        want = {**{k: 0 for k in n}, "attention_fwd": meta["model_config"]["depth"] * meta["T"]}
+        if n != want:
+            raise AssertionError(f"parity {sampler}: launches {n}, expected {want}")
+        if not res["ok"]:
+            raise AssertionError(f"parity {sampler}: max|d| {res['max_abs']} > {res['bound']}")
+        rows[sampler] = {"max_abs": res["max_abs"], "mean_abs": res["mean_abs"],
+                         "atol": PARITY_ATOL, "steps": meta["T"], "seconds": seconds,
+                         "launches": n}
+        launches[f"parity_{sampler}"] = n
+    emit({"phase": "parity", "dtype": "float32", "head_dim": 8, "bundles": rows})
+    return launches
+
+
+def write_validate_weights(model, path):
+    """`model`'s state dict, reference layout, as a `.pt` file at `path`."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def phase_validate(dit_pt, vae_bin):
+    """`fast_dit_torch.validate_pretrained` at DiT-XL/2 256², full width and
+    depth, on the sampling path's seeded weights (`dit_pt`) and the random
+    full-width VAE: A within 1e-3 of the functional oracle, B, C (8 demo
+    labels, CFG 4.0, fp32) and D (`sample_ddp`, bf16, VALIDATE_FID images in
+    batches of 8, the split-half FID), C and D at VALIDATE_STEPS steps;
+    kernel 1 launched exactly depth x (1 + steps + batches x steps). The FID
+    of random weights checks the mechanism, not quality."""
+    out_dir = os.path.join(OUT_DIR, "validate")
+    batch = 8  # D's batch, the kit's own
+    args = validate_pretrained.build_parser().parse_args([
+        "--dit", dit_pt, "--vae", vae_bin, "--model", "DiT-XL/2",
+        "--num-sampling-steps", str(VALIDATE_STEPS), "--num-fid-samples", str(VALIDATE_FID),
+        "--out-dir", out_dir, "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = validate_pretrained.run(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    depth = DiT_models["DiT-XL/2"].keywords["depth"]
+    calls = depth * (1 + VALIDATE_STEPS + math.ceil(VALIDATE_FID / batch) * VALIDATE_STEPS)
+    want = {**{k: 0 for k in launches}, "attention_fwd": calls}
+    if summary["exit_code"] != 0:
+        raise AssertionError(f"validate: VALIDATION FAILED: {summary}")
+    if launches != want:
+        raise AssertionError(f"validate: launches {launches}, expected {want}")
+    npzs = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(out_dir, "fid_samples"))
+            for f in fs if f.endswith(".npz")]
+    images = np.load(npzs[0])["arr_0"]
+    if images.shape != (VALIDATE_FID, 256, 256, 3):
+        raise AssertionError(f"validate: the npz holds {images.shape}")
+    emit({"phase": "validate", "model": "DiT-XL/2", "image_size": 256, "depth": depth,
+          "A_max_abs": summary["parity_max_abs"], "A_atol": args.parity_atol,
+          "C_dtype": "float32", "C_steps": VALIDATE_STEPS,
+          "C_s_per_step": summary["timing"]["C_s_per_step"],
+          "D_dtype": "bfloat16", "D_images": VALIDATE_FID,
+          "D_images_per_s": summary["timing"]["D_images_per_s"],
+          "fid_split_half_random_weights": summary["fid"], "timing": summary["timing"],
+          "seconds": seconds, "launches": launches, "npz_std": float(images.std()),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.remove(dit_pt)
+    return launches
+
+
 def phase_sample_ddp(vae_bin):
     """The FID harness's own `main` at full width: DiT-XL/2 256² cut to
     CUT_DEPTH, the random VAE, 16 images in 2 batches of 8, 10 DDPM steps,
@@ -3660,6 +3861,8 @@ def main():
         vae_table = f"{root}_vae{ext}"
     vae = timed("vae", phase_vae, vae_bin, vae_table)
     sample_launches, model = timed("sample", phase_sample, a.steps, a.profile, vae_bin)
+    dit_pt = timed("validate_weights", write_validate_weights, model,
+                   os.path.join(OUT_DIR, "validate_dit.pt"))
     models = [model]
     del model  # phase_samplers takes it out of `models`
     sampler_launches = timed("samplers", phase_samplers, a.profile, vae_bin, models)
@@ -3693,13 +3896,17 @@ def main():
     del pipe_model
     torch.cuda.empty_cache()
     nvs_launches = timed("nvs", phase_nvs)
+    check_launches = timed("kernel_check", phase_kernel_check)
+    parity_launches = timed("parity", phase_parity)
+    validate_launches = timed("validate", phase_validate, dit_pt, vae_bin)
     paths = {"sample": sample_launches,
              **{f"samplers_{c}": n for c, n in sampler_launches.items()},
              **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
              **moe_launches, **parallel_launches, "seq_sample": seq_sample_launches,
              "seq_grad": seq_grad_launches, "pipeline": pipe_launches,
              "pipeline_grad": pipe_grad_launches, "pipeline_ranks": pipe_rank_launches,
-             "pipefusion": pf_launches, **nvs_launches}
+             "pipefusion": pf_launches, **nvs_launches, "kernel_check": check_launches,
+             **parity_launches, "validate": validate_launches}
     by_path = {k: {path: n.get(k, 0) for path, n in paths.items()} for k in _build.launch_counts}
     for name, runs in by_path.items():
         if not sum(runs.values()):

@@ -44,6 +44,7 @@ only what JAX refuses, with JAX's messages. Runs on the card unless
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 from typing import Callable, NamedTuple, Optional
 
@@ -94,23 +95,35 @@ def perturb_(model: torch.nn.Module, seed: int = 1, std: float = 0.02) -> None:
                 p.add_(std * torch.randn(p.shape, generator=g).to(p.device))
 
 
+def load_dit(ctor, sd, device):
+    """`ctor(device=...)`'s model with the state dict `sd` loaded strictly,
+    in eval mode: built on the meta device and filled from `sd`, so the
+    init of weights that the file replaces is never computed (at DiT-XL/2
+    it takes seconds on the host)."""
+    with torch.device("meta"):
+        model = ctor(device="meta")
+    model = model.to_empty(device=device)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
 def build_model(args, device, seed):
     """The DiT of `args` (--model, --image-size, --num-classes, --bf16,
     --attn-backend, --quantize, --tome-ratio, --tome-mlp, --ckpt; a flow
     --sampler means no learned-sigma channels) on `device`, in eval mode,
     weights loaded through `find_model`; `--ckpt random` is the init from
     `seed` plus `perturb_`."""
-    model = DiT_models[args.model](
-        input_size=args.image_size // 8, num_classes=args.num_classes,
+    ctor = functools.partial(
+        DiT_models[args.model], input_size=args.image_size // 8, num_classes=args.num_classes,
         learn_sigma=args.sampler not in FLOW_SAMPLERS,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         attn_backend=args.attn_backend, quant=args.quantize, tome_ratio=args.tome_ratio,
-        tome_mlp=args.tome_mlp, device=device, seed=seed)
-    if args.ckpt == "random":
-        perturb_(model)
-    else:
+        tome_mlp=args.tome_mlp, seed=seed)
+    if args.ckpt != "random":
         name = args.ckpt or f"DiT-XL-2-{args.image_size}x{args.image_size}.pt"
-        model.load_state_dict(find_model(name), strict=True)
+        return load_dit(ctor, find_model(name), device)
+    model = ctor(device=device)
+    perturb_(model)
     return model.eval()
 
 

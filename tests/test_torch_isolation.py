@@ -57,7 +57,9 @@ def test_port_sources_exist():
                      "__init__", "conditioning", "dino", "epipolar", "geometry", "inpaint",
                      "metrics", "pose_io", "warp")),
                  "fast_dit_torch/utils/viz.py", "fast_dit_torch/utils/video.py",
-                 "fast_dit_torch/nvs_demo.py", "fast_dit_torch/evaluate_samples.py"):
+                 "fast_dit_torch/nvs_demo.py", "fast_dit_torch/evaluate_samples.py",
+                 "fast_dit_torch/kernel_check.py", "fast_dit_torch/parity_check.py",
+                 "fast_dit_torch/validate_pretrained.py", "fast_dit_torch/crop_gt.py"):
         assert must in rel
 
 

@@ -24,6 +24,15 @@ nonzero:
                   ragged S and at large logits (past 50), with its time, the
                   plain version's, SDPA's (timed only), the bound, and the
                   kernel's time over SDPA's (x_library) and over the bound (x_bound).
+ 3b. attn_layout: kernel 6, the clamped attention forward of the TPU's head-dim layout
+                  experiment (`ops/attn_layout.py`), against its plain version, fp32
+                  and bf16, at the TPU bench's shape (16, 256, 16, 72), at a ragged S
+                  (180), at hd 128 and at large logits (past 50, where it follows the
+                  clamp and parts from kernel 1's exact softmax by the recorded max
+                  |delta|); then its path, the layout comparison, with the launch
+                  counts reset: each case timed with kernel 1 on the same inputs, the
+                  plain version, SDPA (timed only) and the bound, and the TPU bench's
+                  two conclusions (transposed_vs_prod, hd128_vs_hd72_time).
  4. kernel_bwd:   the attention backward the same way, at the training shape, at
                   1024 tokens, at a ragged S and at large logits, with the fused
                   SDPA backward op alone timed beside it (flash attention's in
@@ -202,7 +211,9 @@ nonzero:
                   fp32 and bf16; at 256 also the inference call) and kernels 4 and 5 on one
                   shard at 1024, 2048 and 4096 (fp32 and bf16), forward and input gradients
                   against softmax attention in float64 on the card: fp32 within 2e-5, bf16
-                  within 5e-2, absolute; one line a case with the kernels' ms.
+                  within 5e-2, absolute; one line a case with the kernels' ms and, timed
+                  the same way at the case's shape, the library calls of phases 3, 4 and
+                  13, 14 (library_ms, bwd_library_ms, x_library, bwd_x_library).
 20. parity:       `fast_dit_torch.parity_check` replays both bundles recorded from the
                   reference sampler (tests/fixtures: DDPM and DDIM, 10 steps, depth 2, 4
                   heads of 8) through kernel 1 in fp32: within 2e-4 of the recorded
@@ -250,6 +261,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from fast_dit_torch.models import DiT_models  # noqa: E402
 from fast_dit_torch.ops import _build  # noqa: E402
+from fast_dit_torch.ops.attn_layout import _transposed_forward_plain, transposed_forward  # noqa: E402
 from fast_dit_torch.ops.flash_attention import (  # noqa: E402
     _attention_qkv_bwd_plain, _attention_qkv_plain, _launch_bwd, _launch_fwd,
     flash_attention_qkv_flat)
@@ -303,6 +315,11 @@ BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_SHAPES = [(32, 256, 16, 72), (16, 1024, 16, 72), (2, 200, 6, 64), (16, 256, 16, 72),
               (32, 256, 8, 72), (8, 256, 16, 72)]
 TRAIN_SHAPE = (32, 256, 16, 72)  # DiT-XL/2 256², batch 32
+# kernel 6 (attn_layout): the TPU bench's shape (benchmarks/attn_layout_bench.py's
+# defaults, B=16, S=256, H=16, hd=72), a ragged S (ToMe's 180) and the bench's
+# hd-128 "pad-proof" width; MAIN_SHAPE also at large logits
+LAYOUT_SHAPES = [(16, 256, 16, 72), (16, 180, 16, 72), (16, 256, 16, 128)]
+L2_BYTES = 50e6  # the H100's L2: back-to-back calls on inputs this small run from it
 # the large-logit case, at MAIN_SHAPE (forward) and TRAIN_SHAPE (backward): q
 # and k scaled by 4, so the logits reach about 100, past the TPU's bf16 clamp
 # at 50, and the row max decides the rows; v scaled by 1/4, so the output
@@ -696,6 +713,75 @@ def phase_kernel():
             if (B, S, H, hd) == MAIN_SHAPE and dtype == torch.bfloat16 and not large:
                 main = row
     return main
+
+
+def _layout_check(B, S, H, hd, dtype, g, large):
+    """Kernel 6 against its plain version at one shape and dtype: (row, qkv).
+    At large logits it must follow the clamp, and the row records how far
+    that puts it from kernel 1's exact softmax."""
+    qkv, max_logit = attention_qkv(B, S, H, hd, dtype, g, large)
+    scale = hd ** -0.5
+    out = transposed_forward(qkv, scale, H)
+    torch.cuda.synchronize()
+    ref = _transposed_forward_plain(qkv, scale, H)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= TOL[dtype]):
+        raise AssertionError(f"attention_transposed vs plain at {(B, S, H, hd)} {dtype} "
+                             f"large={large}: max abs err {err} > {TOL[dtype]}")
+    row = {"phase": "attn_layout", "name": "attention_transposed", "shape": [B, S, H, hd],
+           "dtype": _dtype_name(dtype), "large_logits": large, "max_logit": max_logit,
+           "max_abs_err": err, "tol": TOL[dtype], "max_abs_out": ref.abs().max().item()}
+    if large:
+        exact = flash_attention_qkv_flat(qkv, H)
+        row["vs_attention_fwd_max_abs"] = (out.float() - exact.float()).abs().max().item()
+        if not row["vs_attention_fwd_max_abs"] > TOL[dtype]:
+            raise AssertionError("the clamped kernel matched the exact softmax at logits "
+                                 f"up to {max_logit}: the clamp did not act")
+    return row, qkv
+
+
+def phase_attn_layout():
+    """Kernel 6 against its plain version at every case, then its path: the
+    TPU bench's layout comparison at B=16, S=256, H=16, each case timed with
+    kernel 1 on the same inputs, the plain version and SDPA, with the launch
+    counts reset before it. Returns (the bf16 bench-shape row, launches)."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    checked = [_layout_check(*shape, dtype, g, large)
+               for shape, large in [(s, False) for s in LAYOUT_SHAPES] + [(MAIN_SHAPE, True)]
+               for dtype in (torch.float32, torch.bfloat16)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    _build.reset_launch_counts()
+    rows = {}
+    for row, qkv in checked:
+        B, S, H, hd = row["shape"]
+        D, scale = H * hd, hd ** -0.5
+        q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, S, H, hd).transpose(1, 2)
+                   for i in range(3))
+        bound, bound_by = attention_bound_ms(B, S, H, hd, qkv.dtype)
+        nbytes = 4 * B * S * D * qkv.element_size()
+        row.update(kernel_ms=cuda_ms(lambda: transposed_forward(qkv, scale, H)),
+                   attention_fwd_ms=cuda_ms(lambda: flash_attention_qkv_flat(qkv, H)),
+                   plain_ms=cuda_ms(lambda: _transposed_forward_plain(qkv, scale, H)),
+                   library_ms=cuda_ms(lambda: sdpa(q, k, v, scale=scale)),
+                   library="F.scaled_dot_product_attention (exact softmax)",
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   # every variant is timed the same way, back to back on one input
+                   fits_l2=nbytes < L2_BYTES)
+        emit(_ratios(row))
+        rows[tuple(row["shape"]), row["dtype"], row["large_logits"]] = row
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    main, hd128 = (rows[shape, "bfloat16", False] for shape in (MAIN_SHAPE, LAYOUT_SHAPES[2]))
+    # the TPU bench's names: > 1 means kernel 6 beats kernel 1; ~1 means hd 128
+    # costs what hd 72 does, ~1.78 (the FLOP ratio) that hd 72 pays for its FLOPs
+    emit({"phase": "attn_layout", "conclusion": {
+        "transposed_vs_prod": main["attention_fwd_ms"] / main["kernel_ms"],
+        "hd128_vs_hd72_time": hd128["attention_fwd_ms"] / main["attention_fwd_ms"],
+        "transposed_hd128_vs_hd72_time": hd128["kernel_ms"] / main["kernel_ms"],
+        "library_hd128_vs_hd72_time": hd128["library_ms"] / main["library_ms"],
+        # bytes and operations alike: 128 / 72
+        "bound_hd128_vs_hd72": hd128["bound_ms"] / main["bound_ms"]}, "launches": launches})
+    return main, launches
 
 
 def phase_kernel_bwd():
@@ -3627,10 +3713,46 @@ def phase_moe(steps, profile_root):
     return launches
 
 
-def _with_bounds(row):
+def _kernel_check_library(row):
+    """(library, library_ms, bwd_library_ms or None) of a kernel_check row:
+    the PyTorch calls that phases kernel, kernel_bwd and ring_kernel* time
+    beside kernels 1, 2, 4 and 5, on seeded inputs of the row's own B, S, H,
+    hd and dtype, timed as kernel_check times the kernels (`kernel_check._ms`).
+    The packed rows take SDPA's forward; the ring-hop rows the call that
+    also returns the rows' LSE (flash in bf16, memory-efficient in fp32);
+    both take the fused backward op alone (`sdpa_backward`)."""
+    B, S, H, hd = row["B"], row["S"], row["H"], row["hd"]
+    dtype, cuda = getattr(torch, row["dtype"]), torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q, k, v, do = ((torch.randn(B, H, S, hd, generator=g, device="cuda") * 0.5).to(dtype)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    aten = torch.ops.aten
+    if row["regime"] != "ring-hop":
+        library = "F.scaled_dot_product_attention"
+        fwd = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+    elif dtype == torch.bfloat16:
+        library = "aten._scaled_dot_product_flash_attention (with LSE)"
+        fwd = lambda: aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False,
+                                                               scale=scale)
+    else:
+        library = "aten._scaled_dot_product_efficient_attention (with LSE)"
+        fwd = lambda: aten._scaled_dot_product_efficient_attention(q, k, v, None, True, 0.0,
+                                                                   False, scale=scale)
+    bwd_ms = None
+    if row["bwd_kernel_ms"] is not None:
+        bwd, bwd_library = sdpa_backward(q, k, v, do, scale)
+        library = f"{library}; {bwd_library}"
+        bwd_ms = kernel_check._ms(bwd, cuda)
+    return library, kernel_check._ms(fwd, cuda), bwd_ms
+
+
+def _with_bounds(row, library_times=None):
     """A kernel_check row with its kernels' bounds (the formulas of phases
     kernel, kernel_bwd and ring_kernel*): forward 4 B S^2 D operations, the
-    backward 10; bytes each input read and each output written once."""
+    backward 10; bytes each input read and each output written once. With
+    `library_times` (row -> (library, library_ms, bwd_library_ms)), also the
+    library's times and the kernels' over them."""
     B, S, H, hd = row["B"], row["S"], row["H"], row["hd"]
     dtype = getattr(torch, row["dtype"])
     D, elt = H * hd, torch.tensor([], dtype=dtype).element_size()
@@ -3646,17 +3768,24 @@ def _with_bounds(row):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
         row[f"{key}_ms"] = max(t_bytes, t_ops)
         row[f"{key}_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if library_times is not None:
+        row["library"], row["library_ms"], row["bwd_library_ms"] = library_times(row)
+        row["x_library"] = row["kernel_ms"] / row["library_ms"]
+        if row["bwd_library_ms"] is not None:
+            row["bwd_x_library"] = row["bwd_kernel_ms"] / row["bwd_library_ms"]
     return {"phase": "kernel_check", **row}
 
 
 def phase_kernel_check():
     """`fast_dit_torch.kernel_check` on the card: kernels 1 and 2 at S = 256
     to 4096 and kernels 4 and 5 at 1024 to 4096 against float64, fp32 within
-    2e-5, bf16 within 5e-2; one line a case. Returns its launches (the
-    check's calls and its timed calls)."""
+    2e-5, bf16 within 5e-2; one line a case, with the library's times at the
+    case's shape. Returns its launches (the check's calls and its timed
+    calls)."""
     _build.reset_launch_counts()
-    rows, failures = kernel_check.run(torch.device("cuda"),
-                                      emit=lambda line: emit(_with_bounds(json.loads(line))))
+    rows, failures = kernel_check.run(
+        torch.device("cuda"),
+        emit=lambda line: emit(_with_bounds(json.loads(line), _kernel_check_library)))
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     if failures:
@@ -3850,6 +3979,7 @@ def main():
     vae_bin = timed("vae_file", write_random_vae, os.path.join(OUT_DIR, "vae_random.bin"))
     timed("build", phase_build)
     fwd = timed("kernel", phase_kernel)
+    layout, layout_launches = timed("attn_layout", phase_attn_layout)
     bwd = timed("kernel_bwd", phase_kernel_bwd)
     fused = timed("fused_update", phase_fused_update)
     fused_nu16 = timed("fused_update_nu_bf16", phase_fused_update, nu_dtype=torch.bfloat16,
@@ -3899,7 +4029,7 @@ def main():
     check_launches = timed("kernel_check", phase_kernel_check)
     parity_launches = timed("parity", phase_parity)
     validate_launches = timed("validate", phase_validate, dit_pt, vae_bin)
-    paths = {"sample": sample_launches,
+    paths = {"sample": sample_launches, "attn_layout": layout_launches,
              **{f"samplers_{c}": n for c, n in sampler_launches.items()},
              **tome_launches, **quant_launches, "sample_ddp": ddp_launches, **train_launches,
              **moe_launches, **parallel_launches, "seq_sample": seq_sample_launches,
@@ -3938,6 +4068,8 @@ def main():
               "fast_dit_tpu/ops/ring_attention.py:77", ring_fwd),
         entry("ring_hop_bwd", "fast_dit_torch/csrc/ring_hop_bwd.cu",
               "fast_dit_tpu/ops/ring_attention.py:111", ring_bwd),
+        entry("attention_transposed", "fast_dit_torch/csrc/attention_transposed_fwd.cu",
+              "benchmarks/attn_layout_bench.py:59", layout),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

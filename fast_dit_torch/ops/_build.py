@@ -35,14 +35,16 @@ SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "fused_update": "fused_update.cu",
            "ring_hop_fwd": "ring_hop_fwd.cu",
-           "ring_hop_bwd": "ring_hop_bwd.cu"}
+           "ring_hop_bwd": "ring_hop_bwd.cu",
+           "attention_transposed": "attention_transposed_fwd.cu"}
 
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel, and nowhere else (the two backwards count one per
 # call, though each launches two passes; the fused update counts its fp32-nu
 # and its bf16-nu instantiation apart)
 launch_counts = {"attention_fwd": 0, "attention_bwd": 0, "fused_adamw_ema": 0,
-                 "fused_adamw_ema_nu_bf16": 0, "ring_hop_fwd": 0, "ring_hop_bwd": 0}
+                 "fused_adamw_ema_nu_bf16": 0, "ring_hop_fwd": 0, "ring_hop_bwd": 0,
+                 "attention_transposed": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -111,11 +111,11 @@ def test_backward_launcher_raises_rather_than_falling_back_off_cuda(monkeypatch)
 
 def test_every_kernel_has_a_source_and_a_counter():
     assert set(_build.SOURCES) == {"flash_attention_fwd", "flash_attention_bwd", "fused_update",
-                                   "ring_hop_fwd", "ring_hop_bwd"}
+                                   "ring_hop_fwd", "ring_hop_bwd", "attention_transposed"}
     # the fused update counts its fp32-nu and bf16-nu instantiations apart
     assert set(_build.launch_counts) == {"attention_fwd", "attention_bwd", "fused_adamw_ema",
                                          "fused_adamw_ema_nu_bf16", "ring_hop_fwd",
-                                         "ring_hop_bwd"}
+                                         "ring_hop_bwd", "attention_transposed"}
     for name, src in _build.SOURCES.items():
         assert (_build.CSRC / src).is_file()
         assert _build._target(name).name.startswith(f"lib{name}-")

@@ -13,6 +13,8 @@ import torch
 
 from fast_dit_torch.ops import _build
 from fast_dit_torch.ops import fused_update as fu
+from fast_dit_torch.ops.attn_layout import _launch as _launch_transposed
+from fast_dit_torch.ops.attn_layout import _transposed_forward_plain, transposed_forward
 from fast_dit_torch.ops.flash_attention import (_attention_qkv_bwd_plain, _attention_qkv_plain,
                                                 _launch_fwd, flash_attention_qkv_flat)
 from fast_dit_torch.ops.ring_attention import (_BWD_ARGS, _FWD_ARGS, _hop_backward_plain,
@@ -590,6 +592,59 @@ def test_attention_kernel_at_the_tome_lengths(cuda, S, dtype):
     out = flash_attention_qkv_flat(qkv, 16)
     ref = _attention_qkv_plain(qkv, 16, 72 ** -0.5)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the clamped attention forward of the TPU's head-dim layout
+# experiment (benchmarks/attn_layout_bench.py)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's attn_layout cases (the TPU bench's shape, a ragged S, hd 128,
+# large logits), then small shapes at the edges of a tile and of the head dims
+LAYOUT_CASES = [(16, 256, 16, 72, False), (16, 180, 16, 72, False), (16, 256, 16, 128, False),
+                (16, 256, 16, 72, True), (1, 7, 2, 128, False), (3, 65, 4, 8, False),
+                (2, 130, 3, 40, False), (2, 200, 6, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,H,hd,large", LAYOUT_CASES)
+def test_transposed_kernel_matches_plain(cuda, B, S, H, hd, large, dtype):
+    qkv = _qkv(cuda, B, S, H, hd, dtype, large, seed=12)
+    scale = hd ** -0.5
+    before = dict(_build.launch_counts)
+    out = transposed_forward(qkv, scale, H)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {
+        **before, "attention_transposed": before["attention_transposed"] + 1}
+    assert out.dtype == dtype and out.shape == (B, S, H * hd) and torch.isfinite(out).all()
+    ref = _transposed_forward_plain(qkv, scale, H)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if large:  # the kernel follows the clamp, where kernel 1 is exact softmax
+        exact = flash_attention_qkv_flat(qkv, H)
+        assert (out.float() - exact.float()).abs().max().item() > TOL[dtype]
+
+
+def test_transposed_kernel_reads_the_packed_qkv_in_place(cuda):
+    """The wrapper allocates the output and nothing else: q, k and v are read
+    as column views of the packed tensor (row stride 3D), never copied out."""
+    B, S, H, hd = 4, 96, 4, 72
+    qkv = _qkv(cuda, B, S, H, hd, torch.bfloat16, False, seed=13)
+    transposed_forward(qkv, 0.1, H)  # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    out = transposed_forward(qkv, 0.1, H)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - before == out.numel() * out.element_size()
+    assert torch.equal(out, transposed_forward(qkv.clone(), 0.1, H))
+
+
+def test_a_refused_transposed_launch_raises(cuda):
+    # hd 12 is not a multiple of 8: the wrapper's check is bypassed here, so
+    # the C entry point refuses it and the error must surface
+    qkv = torch.zeros(1, 4, 3 * 2 * 12, device=cuda)
+    with pytest.raises(RuntimeError, match="attention_transposed launch: CUDA error"):
+        _launch_transposed(qkv, 0.5, 2, 12)
 
 
 def _small_chain(device, options, cached):

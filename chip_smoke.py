@@ -25,7 +25,9 @@ nonzero:
                   plain version's, SDPA's (timed only), the bound, and the
                   kernel's time over SDPA's (x_library) and over the bound (x_bound).
  3b. attn_layout: kernel 6, the clamped attention forward of the TPU's head-dim layout
-                  experiment (`ops/attn_layout.py`), against its plain version, fp32
+                  experiment (`ops/attn_layout.py`; each row names the body that ran,
+                  bf16 "tma_wgmma" or fp32 "fp32_cores", with ptxas's registers and
+                  spill bytes), against its plain version, fp32
                   and bf16, at the TPU bench's shape (16, 256, 16, 72), at a ragged S
                   (180), at hd 128 and at large logits (past 50, where it follows the
                   clamp and parts from kernel 1's exact softmax by the recorded max
@@ -610,6 +612,9 @@ def ptxas_report(log):
     return kernels, spill
 
 
+PTXAS = {}  # kernel (mangled name) -> its registers and spill bytes, from the build
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -617,6 +622,7 @@ def phase_build():
     spill, bf16_hd72 = {}, {}
     for lib, path in libs.items():
         kernels, spill[lib] = ptxas_report(path.with_suffix(".log").read_text())
+        PTXAS.update(kernels)
         # the attention kernels' bf16 bodies at the main path's head dim
         bf16_hd72.update({k: v for k, v in kernels.items() if "bf16" in k and "Li72E" in k})
     if not bf16_hd72:
@@ -715,6 +721,23 @@ def phase_kernel():
     return main
 
 
+# kernel 6's two bodies: the name of each, and its kernel's name in the build
+LAYOUT_BODIES = {torch.bfloat16: ("tma_wgmma", "attention_transposed_fwd_bf16_tma_kernel"),
+                 torch.float32: ("fp32_cores", "attention_transposed_fwd_kernel")}
+
+
+def _layout_body(dtype, hd):
+    """The body of kernel 6 that runs for `dtype`, with ptxas's registers a
+    thread (at launch: the bf16 body then moves them between its warpgroups)
+    and spill bytes for its instantiation at `hd`."""
+    body, kernel = LAYOUT_BODIES[dtype]
+    report = [v for k, v in PTXAS.items() if kernel in k and f"Li{hd}E" in k]
+    if len(report) != 1:
+        raise AssertionError(f"the build reported {len(report)} kernels {kernel} at hd {hd}")
+    return {"body": body, "registers": report[0]["registers"],
+            "spill_bytes": report[0]["spill_stores"] + report[0]["spill_loads"]}
+
+
 def _layout_check(B, S, H, hd, dtype, g, large):
     """Kernel 6 against its plain version at one shape and dtype: (row, qkv).
     At large logits it must follow the clamp, and the row records how far
@@ -729,8 +752,9 @@ def _layout_check(B, S, H, hd, dtype, g, large):
         raise AssertionError(f"attention_transposed vs plain at {(B, S, H, hd)} {dtype} "
                              f"large={large}: max abs err {err} > {TOL[dtype]}")
     row = {"phase": "attn_layout", "name": "attention_transposed", "shape": [B, S, H, hd],
-           "dtype": _dtype_name(dtype), "large_logits": large, "max_logit": max_logit,
-           "max_abs_err": err, "tol": TOL[dtype], "max_abs_out": ref.abs().max().item()}
+           "dtype": _dtype_name(dtype), **_layout_body(dtype, hd), "large_logits": large,
+           "max_logit": max_logit, "max_abs_err": err, "tol": TOL[dtype],
+           "max_abs_out": ref.abs().max().item()}
     if large:
         exact = flash_attention_qkv_flat(qkv, H)
         row["vs_attention_fwd_max_abs"] = (out.float() - exact.float()).abs().max().item()

@@ -19,7 +19,8 @@ import torch
 import chip_smoke
 from fast_dit_torch import ops
 from fast_dit_torch.ops import _build
-from fast_dit_torch.ops.attn_layout import _transposed_forward_plain, transposed_forward
+from fast_dit_torch.ops.attn_layout import (TMA_BOX_ROWS, _plan_array, _tma_plan,
+                                            _transposed_forward_plain, transposed_forward)
 from fast_dit_torch.ops.flash_attention import _attention_qkv_plain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -156,3 +157,107 @@ def test_the_kernel_is_built_and_counted_with_the_others():
     # the bench shape's bound: 4 B S D bf16 bytes over the card's rate
     assert chip_smoke.attention_bound_ms(16, 256, 16, 72, torch.bfloat16) == pytest.approx(
         (4 * 16 * 256 * 1152 * 2 / 3.35e12 * 1e3, "bytes"))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 body's plan: TMA's rules, and every head rebuilt from the boxes and
+# 16-byte pieces the kernel moves, with TMA's out-of-bounds rule in numpy
+# ---------------------------------------------------------------------------
+
+def _box_index(m, coords):
+    """(element index into the flat tensor, in-bounds mask) of the box of map
+    `m` at `coords` (innermost first), shaped as the box lies in shared memory
+    (outermost dim first). Byte offsets come from the map's strides alone."""
+    rank = len(m["dims"])
+    strides = (2, *m["strides"])  # bf16
+    off = np.zeros((), np.int64)
+    ok = np.ones((), bool)
+    for i in range(rank):
+        shape = [1] * rank
+        shape[rank - 1 - i] = m["box"][i]
+        pos = (coords[i] + np.arange(m["box"][i])).reshape(shape)
+        off = off + pos * strides[i]
+        ok = ok & (pos >= 0) & (pos < m["dims"][i])
+    assert (off[ok] % 2 == 0).all()
+    return off // 2, ok
+
+
+def _tma_load(flat, m, coords):
+    idx, ok = _box_index(m, coords)
+    return np.where(ok, flat[np.where(ok, idx, 0)], 0).reshape(m["box"][-1::-1]).squeeze()
+
+
+@pytest.mark.parametrize("S", [1, 7, 65, 180, 256])
+@pytest.mark.parametrize("hd", list(range(8, 129, 8)))
+def test_tma_plan_keeps_the_rules_and_rebuilds_every_head(hd, S):
+    B, H = 2, 2
+    plan = _tma_plan(B, S, H, hd)
+    hdp, chunks, maps = plan["hdp"], plan["chunks"], plan["maps"]
+    n_tma = plan["tma_chunks"]
+    assert {w for _, w in chunks[:n_tma]} == {chunks[0][1]}
+    assert hdp % 16 == 0 and hd <= hdp < hd + 16
+    assert [c for c, _ in chunks] == [sum(w for _, w in chunks[:i]) for i in range(len(chunks))]
+    assert sum(w for _, w in chunks) == hdp and all(w in (16, 32, 64) for _, w in chunks)
+    for m in maps.values():
+        rank = len(m["dims"])
+        assert rank <= 5 and len(m["box"]) == rank and len(m["strides"]) == rank - 1
+        assert all(s % 16 == 0 and s < 2 ** 40 for s in m["strides"])
+        assert all(1 <= b <= 256 for b in m["box"]) and all(d < 2 ** 32 for d in m["dims"])
+        assert m["box"][0] == chunks[0][1] and m["box"][0] * 2 % 16 == 0
+        assert m["swizzle"] in (32, 64, 128) and m["box"][0] * 2 <= m["swizzle"]
+    # the packed form the C entry point reads: rank, dims, strides, box, swizzle
+    arr = list(_plan_array(B, S, H, hd))
+    m = maps["out"]
+    assert arr[16:] == [4, *m["dims"], 0, *m["strides"], 0, *m["box"], 0, m["swizzle"]]
+
+    # loads: K and V in 64-key tiles, Q in tiles of block_rows, 64-row boxes;
+    # the first chunks by TMA boxes, the others in 16-byte pieces (8 columns)
+    D = H * hd
+    x = np.arange(1, B * S * 3 * D + 1, dtype=np.int64)
+    heads = x.reshape(B, S, 3, H, hd)
+    nk = -(-S // TMA_BOX_ROWS) * TMA_BOX_ROWS
+    nq = -(-S // plan["block_rows"]) * plan["block_rows"]
+    for b in range(B):
+        for h in range(H):
+            for part, rows in ((0, nq), (1, nk), (2, nk)):
+                tile = np.full((rows, hdp), -1, np.int64)
+                for r0 in range(0, rows, TMA_BOX_ROWS):
+                    for col, w in chunks[:n_tma]:
+                        tile[r0:r0 + TMA_BOX_ROWS, col:col + w] = _tma_load(
+                            x, maps["qkv"], (col, h, part, r0, b))
+                for col, w in chunks[n_tma:]:
+                    for r in range(rows):
+                        for c in range(col, col + w, 8):
+                            ok = r < S and c < hd
+                            tile[r, c:c + 8] = heads[b, r, part, h, c:c + 8] if ok else 0
+                want = np.zeros((rows, hdp), np.int64)
+                want[:S, :hd] = heads[b, :, part, h]
+                np.testing.assert_array_equal(tile, want)
+
+    # stores: each warpgroup's 64 rows of a query tile; the first chunks
+    # through the output map, the others in pieces; only rows < S and columns
+    # < hd land, and every output element does
+    out = np.full(B * S * D, -1, np.int64)
+    o = np.arange(B * H * nq * hdp, dtype=np.int64).reshape(B, H, nq, hdp)
+    for b in range(B):
+        for h in range(H):
+            for r0 in range(0, nq, TMA_BOX_ROWS):
+                for col, w in chunks[:n_tma]:
+                    idx, ok = _box_index(maps["out"], (col, h, r0, b))
+                    vals = o[b, h, r0:r0 + TMA_BOX_ROWS, col:col + w].reshape(idx.shape)
+                    out[idx[ok]] = vals[ok]
+            for col, w in chunks[n_tma:]:
+                for r in range(min(nq, S)):
+                    for c in range(col, min(col + w, hd), 8):
+                        at = ((b * S + r) * H + h) * hd + c
+                        out[at:at + 8] = o[b, h, r, c:c + 8]
+    np.testing.assert_array_equal(out.reshape(B, S, H, hd),
+                                  o[:, :, :S, :hd].transpose(0, 2, 1, 3))
+
+
+def test_the_build_comparison_needs_a_card():
+    # kernel6_compare times builds of kernel 6 on the card; without one it
+    # stops before building anything
+    from fast_dit_torch import kernel6_compare
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        kernel6_compare.main(["--other", "pr16=missing.cu"])

@@ -600,10 +600,14 @@ def test_attention_kernel_at_the_tome_lengths(cuda, S, dtype):
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py's attn_layout cases (the TPU bench's shape, a ragged S, hd 128,
-# large logits), then small shapes at the edges of a tile and of the head dims
+# large logits), then small shapes at the edges of a tile and of the head dims;
+# for the bf16 body's ring of stages and boxes: an S that wraps the ring many
+# times, an S of exactly one key tile (one box of 16 columns), and hd 120
+# (boxes of 64 + 64, the second cut at 56 columns) at a ragged S
 LAYOUT_CASES = [(16, 256, 16, 72, False), (16, 180, 16, 72, False), (16, 256, 16, 128, False),
                 (16, 256, 16, 72, True), (1, 7, 2, 128, False), (3, 65, 4, 8, False),
-                (2, 130, 3, 40, False), (2, 200, 6, 64, True)]
+                (2, 130, 3, 40, False), (2, 200, 6, 64, True), (2, 1000, 2, 72, False),
+                (1, 64, 1, 16, False), (1, 129, 3, 120, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -637,6 +641,19 @@ def test_transposed_kernel_reads_the_packed_qkv_in_place(cuda):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated(cuda) - before == out.numel() * out.element_size()
     assert torch.equal(out, transposed_forward(qkv.clone(), 0.1, H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_a_misaligned_qkv_is_refused(cuda, dtype):
+    # TMA takes 16-byte aligned tensors only: a view one element into its
+    # storage must raise, not launch
+    B, S, H, hd = 1, 8, 2, 16
+    qkv = torch.zeros(1 + B * S * 3 * H * hd, dtype=dtype, device=cuda)[1:].view(B, S, -1)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        transposed_forward(qkv, 0.25, H)
+    assert dict(_build.launch_counts) == before
 
 
 def test_a_refused_transposed_launch_raises(cuda):

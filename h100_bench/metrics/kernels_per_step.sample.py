@@ -1,0 +1,7 @@
+"""Device kernels a guided sampling step (model call and DDPM update)
+launches: all kernels of the traced window over the steps it completed. A
+CUDA graph or a fusion moves it."""
+
+
+def read(w):
+    return len(w.kernels) / w.steps if w.steps and w.kernels else None
